@@ -1,0 +1,8 @@
+"""stablelm-12b [dense] — hf:stabilityai/stablelm-2-12b family. GQA kv=8."""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="stablelm-12b", family="dense",
+    num_layers=40, d_model=5120, num_heads=32, num_kv_heads=8,
+    head_dim=160, d_ff=13824, vocab_size=100352,
+)

@@ -1,0 +1,73 @@
+"""Plain PyTorch versions of the four serving kernels (port of
+``repro.kernels.ref`` plus the epilogue of ``ops.fused_decode_linear``).
+
+Each is the semantic ground truth its CUDA kernel is held against, bit for
+bit: the CPU tests run them (the wrappers take them only for CPU tensors)
+and ``chip_smoke.py`` compares each kernel with them on the card.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import decompose
+
+
+def quant_scale(amax: torch.Tensor, qmax: Union[torch.Tensor, float],
+                eps: float = 1e-8) -> torch.Tensor:
+    """THE activation scale rule: ``max(amax, eps) * (1/qmax)`` in f32.
+
+    A reciprocal-multiply on purpose (the weight scale divides): the
+    reference pins every activation scale to this form.  ``1/qmax`` is an
+    IEEE f32 division — computed in numpy for a constant, as a tensor
+    division for a per-row range (``1.0 / t`` in torch would go through
+    ``reciprocal``)."""
+    if isinstance(qmax, torch.Tensor):
+        inv = torch.div(torch.ones_like(qmax), qmax)
+    else:
+        inv = float(np.float32(1.0) / np.float32(qmax))
+    return torch.clamp_min(amax, eps) * inv
+
+
+def act_quant_ref(x: torch.Tensor, bits: int = 8,
+                  signed: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric activation quantization at one width.
+    x f32 [M, K] -> (int8 [M, K] (uint8 if unsigned), scale f32 [M, 1])."""
+    qmax = (1 << (bits - 1)) - 1 if signed else (1 << bits) - 1
+    qmin = -(1 << (bits - 1)) if signed else 0
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = quant_scale(amax, qmax)
+    dtype = torch.int8 if signed else torch.uint8
+    q = torch.clamp(torch.round(x / scale), qmin, qmax).to(dtype)
+    return q, scale.to(torch.float32)
+
+
+def act_quant_rows_ref(x: torch.Tensor, qmax: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row-range quantization (signed): ``qmax`` f32 [M, 1] carries each
+    row's ``2^(b-1) - 1``.  Returns (int8 [M, K], scale f32 [M, 1])."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = quant_scale(amax, qmax)
+    q = torch.clamp(torch.round(x / scale), min=-qmax - 1.0, max=qmax)
+    return q.to(torch.int8), scale.to(torch.float32)
+
+
+def bitserial_matmul_ref(x_int: torch.Tensor, planes: torch.Tensor,
+                         shifts: Sequence[int]) -> torch.Tensor:
+    """int32 [M, N] = sum_c (x @ planes[c]) << shifts[c]."""
+    return decompose.decomposed_matmul_shifts(x_int, planes, shifts)
+
+
+def grouped_dequant_matmul_ref(x_int: torch.Tensor, planes_msb: torch.Tensor,
+                               mult: torch.Tensor, x_scale: torch.Tensor,
+                               w_scale: torch.Tensor, row_group: torch.Tensor,
+                               out_dtype: torch.dtype = torch.bfloat16
+                               ) -> torch.Tensor:
+    """``((f32(sum_c (x @ plane_c) * mult[:, c]) * x_scale) * w_scale)``
+    cast to ``out_dtype``.  ``w_scale`` holds one effective scale row per
+    row group [G, N]; ``row_group`` int [M] names each row's group."""
+    acc = decompose.decomposed_matmul_multipliers(x_int, planes_msb, mult)
+    ws = w_scale.index_select(0, row_group.to(torch.int64))
+    return ((acc.to(torch.float32) * x_scale) * ws).to(out_dtype)

@@ -1,0 +1,79 @@
+"""Architecture configuration schema (port of ``repro.models.config``)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                     # dense | moe | hybrid | ssm | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    qk_norm: bool = False
+    rope_theta: float = 1e6
+    # MoE
+    moe: bool = False
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_every: int = 1
+    shared_expert: bool = False
+    capacity_factor: float = 1.25
+    # SSM / hybrid
+    ssm: bool = False
+    attn_every: int = 0
+    ssm_state: int = 128
+    ssm_headdim: int = 64
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    # modality frontend (stubbed: precomputed embeddings)
+    frontend: str = "none"
+    dtype_str: str = "bfloat16"
+    tie_embeddings: bool = False
+
+    def __post_init__(self):
+        if self.head_dim is None and self.num_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return {"bfloat16": torch.bfloat16,
+                "float32": torch.float32}[self.dtype_str]
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 256 (the reference's layout)."""
+        return -(-self.vocab_size // 256) * 256
+
+    def period_pattern(self) -> Tuple[Tuple[str, Optional[str]], ...]:
+        """Per-period (mixer, ff) layer pattern.  mixer in {attn, mamba};
+        ff in {mlp, moe, None}."""
+        if self.ssm and self.attn_every == 0:
+            return (("mamba", None),)
+        if self.attn_every > 0:
+            pat = []
+            for i in range(self.attn_every):
+                mixer = "attn" if i == self.attn_every - 1 else "mamba"
+                ff = "moe" if (self.moe and i % self.moe_every
+                               == self.moe_every - 1) else "mlp"
+                pat.append((mixer, ff))
+            return tuple(pat)
+        if self.moe:
+            return tuple(("attn", "moe" if i == self.moe_every - 1 else "mlp")
+                         for i in range(self.moe_every))
+        return (("attn", "mlp"),)
+
+    @property
+    def n_periods(self) -> int:
+        p = len(self.period_pattern())
+        assert self.num_layers % p == 0, (self.num_layers, p)
+        return self.num_layers // p

@@ -1,0 +1,447 @@
+"""Model building blocks (port of ``repro.models.layers``, attention + MLP):
+norms, RoPE, the quantized linear, flash attention, the KV cache.
+
+Every projection routes through ``kernels.ops.matmul`` under the layer's
+``LayerPrecision``.  Unlike the reference, which is functional, the KV cache
+is updated IN PLACE: a slot view (``serve.slots.slot_view``) shares storage
+with the arena, so a prefill or decode write lands in the arena directly
+and no copy of the cache is ever made.
+
+Float work follows the reference's dtypes and rounding points: rmsnorm
+rounds ``x * inv`` (then ``* g``) in bf16, attention scores and softmax
+are f32 with probabilities cast to bf16 before the PV product, and the MLP
+computes silu in f32 before casting to bf16.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.policy import (INTEGER_BACKENDS, LayerPrecision,
+                                     PrecisionPolicy, PrecisionSchedule)
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class Runtime:
+    """Per-call execution context threaded through the model.
+
+    Precision comes from a fixed ``policy`` or from a ``schedule`` plus
+    tier information: ``tier`` (the whole batch at one tier, see
+    :meth:`for_tier`) or ``groups`` + ``perm`` (a mixed-tier decode batch,
+    see :meth:`for_groups`).  ``groups`` is a tuple of ``(tier_name, rows)``
+    describing contiguous tier-sorted slot groups; ``perm``/``inv_perm``
+    are int64 [B] tensors mapping batch rows into and out of that order.
+    ``fused`` selects ONE group-switching GEMM per projection (default)
+    over the per-group reference loop."""
+
+    policy: PrecisionPolicy
+    schedule: Optional[PrecisionSchedule] = None
+    tier: Optional[str] = None
+    groups: Optional[tuple] = None
+    perm: Optional[torch.Tensor] = None
+    inv_perm: Optional[torch.Tensor] = None
+    fused: bool = True
+
+    def prec(self, name: str) -> LayerPrecision:
+        if self.schedule is not None:
+            return self.schedule.lookup(name, self.tier)
+        return self.policy.lookup(name)
+
+    def for_tier(self, tier: Optional[str]) -> "Runtime":
+        """This runtime with the active tier swapped (no-op sans schedule)."""
+        if self.schedule is None:
+            return self
+        return dataclasses.replace(self, tier=tier, groups=None, perm=None,
+                                   inv_perm=None)
+
+    def for_groups(self, groups, perm: torch.Tensor) -> "Runtime":
+        """This runtime serving a mixed-tier batch: ``perm[i]`` is the batch
+        row that sorted position ``i`` reads from."""
+        if self.schedule is None:
+            raise ValueError("mixed-tier groups need a PrecisionSchedule")
+        return dataclasses.replace(self, tier=None, groups=tuple(groups),
+                                   perm=perm, inv_perm=torch.argsort(perm))
+
+    @property
+    def group_batch(self) -> int:
+        """Total rows covered by ``groups`` (the slot-batch size)."""
+        return sum(n for _, n in self.groups)
+
+
+# ---------------------------------------------------------------- init utils
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
+               dtype: torch.dtype, device: torch.device) -> Dict[str, Any]:
+    """U(-1/sqrt(in), 1/sqrt(in)) in f32, cast to ``dtype`` (the reference's
+    distribution; the draws differ, tests convert the reference's weights)."""
+    scale = 1.0 / math.sqrt(in_dim)
+    u = torch.rand((in_dim, out_dim), generator=gen, device=device,
+                   dtype=torch.float32)
+    return {"w": (u * (2.0 * scale) - scale).to(dtype)}
+
+
+def _serve_backend(prec: LayerPrecision) -> LayerPrecision:
+    """Prepared weights only run on the integer serving backends."""
+    return prec.with_backend(prec.backend if prec.backend in INTEGER_BACKENDS
+                             else "decomposed")
+
+
+def linear(params: Dict[str, Any], x: torch.Tensor, rt: Runtime, name: str,
+           *, act_quants: Optional[Dict[Any, Any]] = None) -> torch.Tensor:
+    """y = x @ w under the mixed-precision policy (``w`` may be a prepared
+    QuantizedWeight).  Under a mixed-tier runtime every prepared-weight
+    matmul takes the per-row-group path: rows gathered into tier order
+    inside ``ops.matmul``, results scattered back with ``rt.inv_perm``.
+    ``act_quants`` is shared by projections reading the SAME tensor."""
+    w = params["w"]
+    if isinstance(w, ops.QuantizedWeight):
+        if rt.groups is not None:
+            if x.shape[0] != rt.group_batch:
+                raise ValueError(
+                    f"{name}: mixed-tier groups cover {rt.group_batch} slots "
+                    f"but x has leading axis {x.shape[0]}")
+            if len(rt.groups) == 1:       # homogeneous layout: no permuting
+                prec = _serve_backend(rt.schedule.lookup(name, rt.groups[0][0]))
+                return ops.matmul(x, None, prec, qw=w, act_quants=act_quants)
+            row_groups = tuple(
+                (n, _serve_backend(rt.schedule.lookup(name, t)))
+                for t, n in rt.groups)
+            yg = ops.matmul(x, None, row_groups[0][1], qw=w,
+                            row_groups=row_groups, perm=rt.perm,
+                            fused=None if rt.fused else False,
+                            act_quants=act_quants)
+            return yg.index_select(0, rt.inv_perm)
+        return ops.matmul(x, None, _serve_backend(rt.prec(name)), qw=w,
+                          act_quants=act_quants)
+    y = ops.matmul(x, w, rt.prec(name))
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+# --------------------------------------------------------------------- norms
+def rmsnorm_init(dim: int, dtype: torch.dtype,
+                 device: torch.device) -> Dict[str, torch.Tensor]:
+    return {"g": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: Dict[str, torch.Tensor], x: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """Variance in f32; the normalized product stays in x.dtype."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    return x * inv.to(x.dtype) * params["g"].to(x.dtype)
+
+
+def qk_headnorm(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """Per-head RMSNorm over head_dim (Qwen3 qk_norm). x: [..., H, Dh]."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["g"].to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------- RoPE
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 1e6) -> torch.Tensor:
+    """Rotary embedding, split-half convention. x: [B, S, H, Dh]."""
+    half = x.shape[-1] // 2
+    exps = -torch.arange(half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=x.device), exps)
+    angles = positions.to(torch.float32)[..., None] * freqs      # [B, S, half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.to(torch.float32).split(half, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------- flash attention
+NEG = -1e30
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, block_k: int = 1024,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax attention over K/V blocks of ``block_k`` (plain
+    torch; the reference's blocked recurrence, block for block).
+
+    q: [B, Sq, H, Dh]; k, v: [B, Sk, KVH, Dh], H % KVH == 0 (GQA).
+    Returns [B, Sq, H, Dh] in q.dtype."""
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(dh)
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    qf = q.transpose(1, 2).to(torch.float32)                     # [b, h, sq, dh]
+    block_k = min(block_k, sk)
+    nb = -(-sk // block_k)
+    dev = q.device
+    qpos = q_offset + torch.arange(sq, device=dev)
+    acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=dev)
+    m = torch.full((b, h, sq), NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+    for i in range(nb):
+        kpos = i * block_k + torch.arange(block_k, device=dev)
+        kb = k[:, i * block_k:(i + 1) * block_k].to(torch.float32)
+        vb = v[:, i * block_k:(i + 1) * block_k].to(torch.float32)
+        pad = block_k - kb.shape[1]
+        if pad:
+            kb = torch.nn.functional.pad(kb, (0, 0, 0, 0, 0, pad))
+            vb = torch.nn.functional.pad(vb, (0, 0, 0, 0, 0, pad))
+        s = torch.einsum("bhqd,bshd->bhqs", qf, kb) * scale
+        valid = (kpos < sk)[None, :]
+        if causal:
+            valid = valid & (qpos[:, None] >= kpos[None, :])
+        s = s.masked_fill(~valid[None, None], NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqs,bshd->bhqd", p, vb)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+# ------------------------------------------------------------------ KV cache
+def _kv_quant(x: torch.Tensor, bits: int, scale_dtype: torch.dtype):
+    """Symmetric per-(position, head) KV quantization (int8 codes).
+
+    The scale is ``amax * (1/qmax)``: the reference writes ``/ qmax`` but
+    runs it jitted, where XLA turns the division by a constant into this
+    reciprocal multiply, and the port follows what the reference serves."""
+    x = x.to(torch.float32)
+    qmax = (1 << (bits - 1)) - 1
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-8) * float(np.float32(1.0) / np.float32(qmax))
+    q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax)
+    return q.to(torch.int8), scale.to(scale_dtype)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Pre-allocated KV cache with PER-SLOT lengths, bf16 or int8 codes with
+    per-(position, head) bf16 scales.  Slot axis first: [B, Smax, KVH, Dh].
+    All writes are in place (see the module docstring)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor]   # bf16 [B, Smax, KVH, 1] when int8
+    v_scale: Optional[torch.Tensor]
+    length: torch.Tensor              # int32 [B] — filled positions per slot
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
+
+    @staticmethod
+    def create(batch: int, max_len: int, kv_heads: int, head_dim: int,
+               dtype: torch.dtype = torch.bfloat16, kv_bits: Optional[int] = None,
+               device: Optional[torch.device] = None) -> "KVCache":
+        """``kv_bits``: None (bf16 storage) or 8 (int8 codes + scales)."""
+        lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+        shape = (batch, max_len, kv_heads, head_dim)
+        if kv_bits == 8:
+            def s():
+                return torch.ones((batch, max_len, kv_heads, 1),
+                                  dtype=torch.bfloat16, device=device)
+            return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
+                           torch.zeros(shape, dtype=torch.int8, device=device),
+                           s(), s(), lengths)
+        if kv_bits is not None:
+            raise NotImplementedError(
+                f"kv_bits={kv_bits!r}: the int4 and mixed per-slot KV modes "
+                "are ROADMAP Queue 1 item 3, not ported yet")
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device),
+                       None, None, lengths)
+
+    def slot(self, slot: int) -> "KVCache":
+        """A batch-1 view of one slot; writes through it land in self."""
+        sl = slice(slot, slot + 1)
+        return KVCache(self.k[sl], self.v[sl],
+                       None if self.k_scale is None else self.k_scale[sl],
+                       None if self.v_scale is None else self.v_scale[sl],
+                       self.length[sl])
+
+    def _encode(self, x: torch.Tensor):
+        if self.quantized:
+            return _kv_quant(x, 8, self.k_scale.dtype)
+        return x.to(self.k.dtype), None
+
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor, start: int, *,
+               new_length: Optional[torch.Tensor] = None) -> "KVCache":
+        """Write [B, S_new, KVH, Dh] at position ``start``; ``new_length``
+        ([B]) overrides the resulting per-slot lengths (right-padded
+        prefill: only the first ``new_length[b]`` positions are real)."""
+        s = k_new.shape[1]
+        kq, ks = self._encode(k_new)
+        vq, vs = self._encode(v_new)
+        self.k[:, start:start + s] = kq
+        self.v[:, start:start + s] = vq
+        if ks is not None:
+            self.k_scale[:, start:start + s] = ks
+            self.v_scale[:, start:start + s] = vs
+        if new_length is None:
+            self.length.fill_(start + s)
+        else:
+            self.length.copy_(new_length.to(self.length.dtype)
+                              .expand_as(self.length))
+        return self
+
+    def append(self, k_new: torch.Tensor, v_new: torch.Tensor,
+               active: Optional[torch.Tensor] = None) -> "KVCache":
+        """Masked per-slot decode write: one token per slot at that slot's
+        own ``length[b]``; slots with ``active[b] == False`` (or full) keep
+        their K/V rows and lengths."""
+        b, smax = self.k.shape[0], self.k.shape[1]
+        if active is None:
+            active = torch.ones((b,), dtype=torch.bool, device=self.k.device)
+        active = active & (self.length < smax)
+        idx = torch.arange(b, device=self.k.device)
+        pos = torch.clamp(self.length, 0, smax - 1).to(torch.int64)
+
+        def put(buf: torch.Tensor, val: torch.Tensor) -> None:
+            cur = buf[idx, pos]
+            mask = active.reshape((-1,) + (1,) * (val.ndim - 1))
+            buf[idx, pos] = torch.where(mask, val.to(buf.dtype), cur)
+
+        kq, ks = self._encode(k_new)
+        vq, vs = self._encode(v_new)
+        put(self.k, kq[:, 0])
+        put(self.v, vq[:, 0])
+        if ks is not None:
+            put(self.k_scale, ks[:, 0])
+            put(self.v_scale, vs[:, 0])
+        self.length.add_(active.to(self.length.dtype))
+        return self
+
+    def read(self, dtype: torch.dtype = torch.bfloat16):
+        """Dequantized (K, V) views of the whole arena."""
+        if self.quantized:
+            return (self.k.to(dtype) * self.k_scale.to(dtype),
+                    self.v.to(dtype) * self.v_scale.to(dtype))
+        return self.k.to(dtype), self.v.to(dtype)
+
+
+def softmax(s: torch.Tensor) -> torch.Tensor:
+    """``exp(s - max) / sum`` with a true division (the reference's form)."""
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def decode_attention(q: torch.Tensor, cache: KVCache) -> torch.Tensor:
+    """Single-step attention against a cache. q: [B, 1, H, Dh].  Grouped
+    (kvh, g) form: scores in f32 from bf16 operands, per-slot length mask,
+    probabilities cast to bf16 before the PV product (f32 accumulation)."""
+    b, sq, h, dh = q.shape
+    k, v = cache.read(q.dtype)
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.reshape(b, sq, kvh, g, dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    valid = torch.arange(sk, device=q.device)[None, :] < cache.length[:, None]
+    s = s.masked_fill(~valid[:, None, None, None, :], NEG)
+    p = softmax(s)
+    out = torch.einsum("bkgqs,bskd->bkgqd", p.to(q.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
+
+
+# --------------------------------------------------------------- GQA attention
+def attention_init(gen: torch.Generator, cfg, dtype: torch.dtype,
+                   device: torch.device) -> Dict[str, Any]:
+    d, h, kvh, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "q_proj": dense_init(gen, d, h * dh, dtype, device),
+        "k_proj": dense_init(gen, d, kvh * dh, dtype, device),
+        "v_proj": dense_init(gen, d, kvh * dh, dtype, device),
+        "o_proj": dense_init(gen, h * dh, d, dtype, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = {"g": torch.ones((dh,), dtype=dtype, device=device)}
+        p["k_norm"] = {"g": torch.ones((dh,), dtype=dtype, device=device)}
+    return p
+
+
+def attention_apply(params: Dict[str, Any], x: torch.Tensor, rt: Runtime,
+                    cfg, name: str, *, positions: Optional[torch.Tensor] = None,
+                    cache: Optional[KVCache] = None, cache_start=None,
+                    seq_lengths: Optional[torch.Tensor] = None,
+                    active: Optional[torch.Tensor] = None):
+    """GQA attention with RoPE (+ optional qk_norm).  With ``cache``: S > 1
+    prefills the cache from position 0 (``seq_lengths`` [B] are the true
+    token counts of right-padded prompts); S == 1 appends one token at
+    each slot's own fill point, ``active`` [B] masking the writes.
+    Returns (out, cache)."""
+    b, s, _ = x.shape
+    h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if positions is None:
+        if cache_start is not None:
+            base = torch.as_tensor(cache_start, dtype=torch.int32,
+                                   device=x.device).reshape(-1, 1)
+        elif cache is not None and s == 1:
+            base = cache.length[:, None]
+        else:
+            base = torch.zeros((1, 1), dtype=torch.int32, device=x.device)
+        positions = base + torch.arange(s, dtype=torch.int32,
+                                        device=x.device)[None, :]
+        positions = positions.expand(b, s)
+    acts: Dict[Any, Any] = {}
+    q = linear(params["q_proj"], x, rt, f"{name}.q_proj",
+               act_quants=acts).reshape(b, s, h, dh)
+    k = linear(params["k_proj"], x, rt, f"{name}.k_proj",
+               act_quants=acts).reshape(b, s, kvh, dh)
+    v = linear(params["v_proj"], x, rt, f"{name}.v_proj",
+               act_quants=acts).reshape(b, s, kvh, dh)
+    if cfg.qk_norm:
+        q = qk_headnorm(params["q_norm"], q)
+        k = qk_headnorm(params["k_norm"], k)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if cache is not None:
+        if s == 1:
+            cache.append(k, v, active=active)
+            out = decode_attention(q, cache)
+        else:
+            start = 0 if cache_start is None else cache_start
+            cache.update(k, v, start, new_length=seq_lengths)
+            kf, vf = cache.read(q.dtype)
+            out = flash_attention(q, kf, vf, causal=True, q_offset=start)
+    else:
+        out = flash_attention(q, k, v, causal=True)
+    out = out.reshape(b, s, h * dh)
+    return linear(params["o_proj"], out, rt, f"{name}.o_proj"), cache
+
+
+# ----------------------------------------------------------------- SwiGLU MLP
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
+             dtype: torch.dtype, device: torch.device) -> Dict[str, Any]:
+    return {
+        "gate_proj": dense_init(gen, d_model, d_ff, dtype, device),
+        "up_proj": dense_init(gen, d_model, d_ff, dtype, device),
+        "down_proj": dense_init(gen, d_ff, d_model, dtype, device),
+    }
+
+
+def mlp_apply(params: Dict[str, Any], x: torch.Tensor, rt: Runtime,
+              name: str) -> torch.Tensor:
+    acts: Dict[Any, Any] = {}
+    gate = linear(params["gate_proj"], x, rt, f"{name}.gate_proj",
+                  act_quants=acts)
+    up = linear(params["up_proj"], x, rt, f"{name}.up_proj", act_quants=acts)
+    gf = gate.to(torch.float32)
+    hidden = (gf * torch.sigmoid(gf)).to(x.dtype) * up
+    return linear(params["down_proj"], hidden, rt, f"{name}.down_proj")

@@ -1,0 +1,30 @@
+"""Serving request type (port of ``repro.serve.request``)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import numpy.typing as npt
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request (pure host data).
+
+    ``tier`` names the precision tier on engines with a
+    ``PrecisionSchedule`` (None = the schedule's default tier; must stay
+    None on untiered engines).  ``deadline`` and ``tenant`` are carried for
+    SLO-aware admission, which the port does not have yet: its FIFO
+    admission ignores them.  ``sampling`` and ``spec`` mirror the
+    reference's fields; the port's engine serves greedy, non-speculative
+    decoding only and rejects a request that sets either."""
+
+    uid: int
+    prompt: npt.NDArray[np.int32]  # [S] int32
+    max_new_tokens: int = 16       # total tokens returned (>= 1)
+    tier: Optional[str] = None
+    deadline: Optional[float] = None
+    tenant: Optional[str] = None
+    sampling: Optional[Any] = None
+    spec: Optional[Any] = None
