@@ -5,12 +5,16 @@
 
 Phases, in order (any failure exits non-zero and prints no result line):
 
-1. build    nvcc builds the four kernels from ``src/repro_torch/kernels/csrc``
+1. build    nvcc builds the six kernels from ``src/repro_torch/kernels/csrc``
             into ``build/kernels/``; prints the build seconds and the card.
 2. parity   each kernel against its plain PyTorch version at the serving
             shapes (M in {8, 64}; K=4096 -> N in {4096, 1024, 12288, 152064};
             K=12288 -> N=4096) and one ragged shape (M=5, K=4100, N=1000):
-            bit-equal, tolerance 0.
+            bit-equal, tolerance 0.  The packed GEMM runs every stored width
+            2/4/6/8 at every even effective width, signed and unsigned; the
+            grouped GEMMs run both layouts with three tier groups.  This
+            phase's launches are the only ones of ``grouped_matmul``, which
+            no serving path runs.
 3. mixed    serves full-width qwen3-8b (seeded random weights made on the
             card layer by layer, each layer's float weights freed once its
             superplane store is prepared) with tiers 8/8 4/4 2/2 through the
@@ -18,10 +22,20 @@ Phases, in order (any failure exits non-zero and prints no result line):
             replays the same requests through the plain ``decomposed``
             backend on the same store, which must launch no kernel, and
             requires identical token streams.
-4. fixed    the quickstart form, --w-bits 4 --kv-bits 8 (LSB-first planes,
+4. packed   the same weights (same seed) and requests through
+            ``ServeEngine(packed=True)``, which prepares the byte-packed
+            superplane store itself (one uint8 per weight); its streams must
+            equal phase 3's, with the packed GEMM in prefill and the packed
+            mode of the grouped GEMM in decode, and no int8-plane GEMM.
+            Then the int8 planes of the same codes and the packed store
+            serve the requests in turns (planes, packed, packed, planes),
+            each with equal streams, for a same-card step-time comparison.
+5. fixed    the quickstart form, --w-bits 4 --kv-bits 8 (LSB-first planes,
             int8 KV), at full width with the depth cut to 4 layers; the
-            ``cuda`` engine's streams must equal the ``decomposed`` one's.
-5. times    median CUDA-event time of each kernel at its serving shapes,
+            ``cuda`` engine's streams must equal the ``decomposed`` one's
+            and the packed ``cuda`` engine's.
+6. times    median CUDA-event time of each kernel at its serving shapes,
+            with a cold L2 cache (as a decode step finds the weights),
             beside its bound on this card, its plain version's time and,
             where one PyTorch call computes the same function, that call's.
 
@@ -54,7 +68,15 @@ KERNELS = {
                          "src/repro/kernels/bitserial_matmul.py:84"),
     "grouped_dequant_matmul": ("src/repro_torch/kernels/csrc/grouped_matmul.cu",
                                "src/repro/kernels/grouped_matmul.py:203"),
+    "packed_bitserial_matmul": ("src/repro_torch/kernels/csrc/bitserial_matmul.cu",
+                                "src/repro/kernels/bitserial_matmul.py:169"),
+    "grouped_matmul": ("src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                       "src/repro/kernels/grouped_matmul.py:164"),
 }
+# The phase whose run gives each kernel's launches in the summary line.
+PATH_OF = {"act_quant": "mixed", "act_quant_rows": "mixed",
+           "bitserial_matmul": "mixed", "grouped_dequant_matmul": "mixed",
+           "packed_bitserial_matmul": "packed", "grouped_matmul": "parity"}
 GEMM_SHAPES = ((4096, 4096), (4096, 1024), (4096, 12288), (4096, 152064),
                (12288, 4096))
 
@@ -125,12 +147,14 @@ def _grouped_args(m: int, n: int, gen):
 def phase_parity() -> dict:
     import torch
     from repro_torch.core import decompose
+    from repro_torch.kernels import _build
     from repro_torch.kernels import act_quant as aq
     from repro_torch.kernels import bitserial_matmul as bsm
     from repro_torch.kernels import grouped_matmul as gmm
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    _build.reset_launches()
     err = {name: 0.0 for name in KERNELS}
     checks = {name: 0 for name in KERNELS}
 
@@ -173,19 +197,50 @@ def phase_parity() -> dict:
                            tuple(2 * c for c in range(p))):
                 hold("bitserial_matmul", bsm.bitserial_matmul(x, pre, shifts),
                      ref.bitserial_matmul_ref(x, pre, shifts))
+        # The byte-packed store of the same weights; a w-bit store keeps its
+        # low w bits.  Unsigned reads take the same bytes.
+        packed = ops.pack_planes(planes.flip(0), 8)
+        for w_bits in (2, 4, 6, 8):
+            wp = packed & ((1 << w_bits) - 1)
+            for eff in range(2, w_bits + 1, 2):
+                for signed in (True, False):
+                    hold("packed_bitserial_matmul",
+                         bsm.packed_bitserial_matmul(x, wp, w_bits=w_bits,
+                                                     eff_bits=eff,
+                                                     signed=signed),
+                         ref.packed_bitserial_matmul_ref(x, wp, w_bits, eff,
+                                                         signed))
+            del wp
         mult, xs, ws, rg = _grouped_args(m, n, gen)
         hold("grouped_dequant_matmul",
              gmm.grouped_dequant_matmul(x, planes, mult, xs, ws, rg),
              ref.grouped_dequant_matmul_ref(x, planes, mult, xs, ws, rg))
-        del x, planes
+        hold("grouped_matmul", gmm.grouped_matmul(x, planes, mult),
+             ref.grouped_matmul_ref(x, planes, mult))
+        for signed in (True, False):
+            lay = dict(packed=True, signed=signed)
+            hold("grouped_dequant_matmul",
+                 gmm.grouped_dequant_matmul(x, packed, mult, xs, ws, rg, **lay),
+                 ref.grouped_dequant_matmul_ref(x, packed, mult, xs, ws, rg,
+                                                **lay))
+            hold("grouped_matmul", gmm.grouped_matmul(x, packed, mult, **lay),
+                 ref.grouped_matmul_ref(x, packed, mult, **lay))
+        # A fixed 4-bit packed store: two fields, the upper one signed.
+        w4 = packed & 0xF
+        mult4 = torch.from_numpy(decompose.prefix_multipliers(((m, 2),))).cuda()
+        hold("grouped_matmul",
+             gmm.grouped_matmul(x, w4, mult4, packed=True, store_planes=2),
+             ref.grouped_matmul_ref(x, w4, mult4, packed=True, store_planes=2))
+        del x, planes, packed, w4
         sync()
         torch.cuda.empty_cache()
+    launches = dict(_build.LAUNCHES)
     log("[parity] tolerance 0 (bit-equal): " + ", ".join(
         f"{k}: {checks[k]} cases" for k in KERNELS))
-    return {"max_abs_err": err}
+    return {"max_abs_err": err, "launches": launches}
 
 
-# ----------------------------------------------------------- phases 3, 4
+# -------------------------------------------------------- phases 3, 4, 5
 def _requests(n: int, vocab: int, max_new: int, tiers, seed: int):
     import numpy as np
     from repro_torch.serve.request import Request
@@ -248,7 +303,11 @@ def _check_streams(label: str, out, reqs, vocab: int) -> None:
             raise AssertionError(f"{label}: uid {r.uid} token out of range")
 
 
-def _build_model(layers: int, policy, superplane: bool, seed: int):
+def _build_model(layers: int, policy, superplane: bool, seed: int,
+                 packed: bool = False, prepare: bool = True):
+    """qwen3-8b at full width, ``layers`` deep, random weights from
+    ``seed``; prepared layer by layer unless ``prepare`` is False (the
+    float weights then go to the engine, which prepares them)."""
     import dataclasses
 
     import torch
@@ -260,16 +319,22 @@ def _build_model(layers: int, policy, superplane: bool, seed: int):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     t0 = time.perf_counter()
-    params = model.init(gen, device="cuda", prepare=lambda tree, prefix:
-                        engine_mod.prepare_tree(tree, policy, prefix=prefix,
-                                                superplane=superplane))
+    params = model.init(gen, device="cuda", prepare=None if not prepare else
+                        lambda tree, prefix: engine_mod.prepare_tree(
+                            tree, policy, prefix=prefix,
+                            superplane=superplane, packed=packed))
     sync()
     log(f"[model] qwen3-8b width {cfg.d_model}, {cfg.num_heads} heads, "
         f"{cfg.num_kv_heads} kv heads, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.padded_vocab}, {layers} layers: initialised + prepared in "
+        f"{cfg.padded_vocab}, {layers} layers: initialised"
+        f"{f' + prepared (packed={packed})' if prepare else ''} in "
         f"{time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
     return cfg, model, params
+
+
+TIERS = {"8/8": (8, 8), "4/4": (4, 4), "2/2": (2, 2)}
+MIXED_KW = dict(max_batch=8, max_len=256, decode_chunk=8, device="cuda")
 
 
 def phase_mixed() -> dict:
@@ -277,13 +342,12 @@ def phase_mixed() -> dict:
     from repro_torch.core.policy import uniform_schedule
     from repro_torch.models.layers import Runtime
     from repro_torch.serve import engine as engine_mod
-    tiers = {"8/8": (8, 8), "4/4": (4, 4), "2/2": (2, 2)}
+    tiers, kw = TIERS, MIXED_KW
     sched = uniform_schedule(tiers, backend="cuda")
     cfg, model, params = _build_model(get_config("qwen3-8b").num_layers,
                                       sched.prepare_policy(),
                                       superplane=True, seed=0)
     reqs = _requests(9, cfg.vocab_size, 16, list(tiers), seed=1)
-    kw = dict(max_batch=8, max_len=256, decode_chunk=8, device="cuda")
     eng = engine_mod.ServeEngine(model, params, Runtime(
         policy=sched.policy_for(), schedule=sched), **kw)
     calls = engine_mod.PREPARE_CALLS
@@ -291,10 +355,9 @@ def phase_mixed() -> dict:
     if engine_mod.PREPARE_CALLS != calls:
         raise AssertionError("prepare_params ran after engine construction")
     _check_streams("mixed", res["tokens"], reqs, cfg.padded_vocab)
-    missing = [k for k, v in res["stats"]["launches"].items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    _check_launches("mixed", res["stats"]["launches"],
+                    used=[k for k, v in PATH_OF.items() if v == "mixed"],
+                    unused=("packed_bitserial_matmul", "grouped_matmul"))
     if eng.stats.mixed_tier_chunks == 0:
         raise AssertionError("no decode chunk mixed tiers")
     del eng
@@ -302,7 +365,83 @@ def phase_mixed() -> dict:
     ref_eng = engine_mod.ServeEngine(model, params, Runtime(
         policy=plain.policy_for(), schedule=plain), **kw)
     _check_plain("mixed", _serve(ref_eng, reqs, "mixed-plain"), res)
-    return res["stats"]
+    return {**res["stats"], "streams": res["tokens"]}
+
+
+def _check_launches(label: str, launches: dict, used, unused) -> None:
+    """Every kernel of ``used`` launched in this run, none of ``unused``."""
+    missing = [k for k in used if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels of the path never launched: "
+                             f"{missing}")
+    stray = [k for k in unused if launches[k] != 0]
+    if stray:
+        raise AssertionError(f"{label}: kernels off the path launched: "
+                             f"{ {k: launches[k] for k in stray} }")
+
+
+def phase_packed(mixed_streams) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import uniform_schedule
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve import engine as engine_mod
+    sched = uniform_schedule(TIERS, backend="cuda")
+    cfg, model, params = _build_model(get_config("qwen3-8b").num_layers,
+                                      sched.prepare_policy(), superplane=True,
+                                      seed=0, prepare=False)
+    reqs = _requests(9, cfg.vocab_size, 16, list(TIERS), seed=1)
+    rt = Runtime(policy=sched.policy_for(), schedule=sched)
+    t0 = time.perf_counter()
+    eng = engine_mod.ServeEngine(model, params, rt, packed=True, **MIXED_KW)
+    del params                     # the engine holds the packed store only
+    sync()
+    log(f"[packed] ServeEngine(packed=True) prepared the store in "
+        f"{time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    import torch
+    torch.cuda.empty_cache()
+    calls = engine_mod.PREPARE_CALLS
+    res = _serve(eng, reqs, "packed")
+    if engine_mod.PREPARE_CALLS != calls:
+        raise AssertionError("prepare_params ran after engine construction")
+    _check_streams("packed", res["tokens"], reqs, cfg.padded_vocab)
+    _check_launches("packed", res["stats"]["launches"],
+                    used=("packed_bitserial_matmul", "act_quant",
+                          "act_quant_rows", "grouped_dequant_matmul"),
+                    unused=("bitserial_matmul", "grouped_matmul"))
+    if res["tokens"] != mixed_streams:
+        raise AssertionError("packed: streams differ from the int8-plane "
+                             "store's (phase mixed)")
+    log(f"[packed] {len(res['tokens'])} streams identical to phase mixed's")
+    # Turns on this card: the int8 planes of the same codes against the
+    # packed store, alternately (planes, packed, packed, planes).
+    stores = {"packed": eng.params, "planes": _unpacked(eng.params)}
+    del eng
+    turns: dict = {"planes": [], "packed": []}
+    for label in ("planes", "packed", "packed", "planes"):
+        turn = _serve(engine_mod.ServeEngine(model, stores[label], rt,
+                                             **MIXED_KW), reqs, f"turn-{label}")
+        if turn["tokens"] != mixed_streams:
+            raise AssertionError(f"turn-{label}: streams differ")
+        turns[label].append(turn["stats"]["mean_decode_step_ms"])
+        gc.collect()
+    log("[packed] turns, mean decode-step ms: " + json.dumps(turns))
+    return {**res["stats"], "turns_step_ms": turns}
+
+
+def _unpacked(tree):
+    """The int8-plane store holding the same codes as a packed one."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    if isinstance(tree, dict):
+        return {k: _unpacked(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_unpacked(v) for v in tree]
+    if isinstance(tree, ops.QuantizedWeight) and tree.packed is not None:
+        return dataclasses.replace(tree, planes=tree.get_planes().contiguous(),
+                                   packed=None)
+    return tree
 
 
 def phase_fixed() -> dict:
@@ -318,20 +457,43 @@ def phase_fixed() -> dict:
     eng = engine_mod.ServeEngine(model, params, Runtime(policy=policy), **kw)
     res = _serve(eng, reqs, "fixed")
     _check_streams("fixed", res["tokens"], reqs, cfg.padded_vocab)
+    _check_launches("fixed", res["stats"]["launches"],
+                    used=("act_quant", "bitserial_matmul"),
+                    unused=("packed_bitserial_matmul", "grouped_matmul"))
     del eng
     ref_eng = engine_mod.ServeEngine(
         model, params, Runtime(policy=policy.with_backend("decomposed")), **kw)
     _check_plain("fixed", _serve(ref_eng, reqs, "fixed-plain"), res)
+    del ref_eng, params
+    gc.collect()                   # engines and handles form cycles
+    # The LSB-first packed store of the same weights (kernel 5 at base 0).
+    _, model, params = _build_model(4, policy, superplane=False, seed=2,
+                                    packed=True)
+    eng = engine_mod.ServeEngine(model, params, Runtime(policy=policy),
+                                 packed=True, **kw)
+    packed = _serve(eng, reqs, "fixed-packed")
+    _check_launches("fixed-packed", packed["stats"]["launches"],
+                    used=("packed_bitserial_matmul", "act_quant"),
+                    unused=("bitserial_matmul", "grouped_matmul"))
+    if packed["tokens"] != res["tokens"]:
+        raise AssertionError("fixed-packed: streams differ from the "
+                             "int8-plane store's")
+    log(f"[fixed-packed] {len(res['tokens'])} streams identical to the "
+        "int8-plane store's")
     return res["stats"]
 
 
-# --------------------------------------------------------------- phase 5
-def _time_ms(fn, reps: int = 25, warm: int = 3) -> float:
+# --------------------------------------------------------------- phase 6
+def _time_ms(fn, flush, reps: int = 25, warm: int = 3) -> float:
+    """Median CUDA-event ms of ``fn``, the L2 cache flushed before each
+    timed call (``flush`` is a buffer larger than it): a decode step reads
+    each weight once, so the GEMMs find their weights cold."""
     import torch
     for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
+        flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -355,17 +517,21 @@ def phase_times() -> dict:
     from repro_torch.kernels import bitserial_matmul as bsm
     from repro_torch.kernels import grouped_matmul as gmm
     from repro_torch.kernels import ref
+    from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     rows = []
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    log("[times] each call timed with a cold L2 (256 MB written before it)")
     log("[times] library_ms: torch._int_mm on the recomposed 8-bit weight for "
-        "bitserial_matmul at P=4, M=64 (it needs M > 16); no single PyTorch "
-        "call computes act_quant, act_quant_rows or grouped_dequant_matmul")
+        "bitserial_matmul and packed_bitserial_matmul at P=4, M=64 (it needs "
+        "M > 16); no single PyTorch call computes act_quant, act_quant_rows, "
+        "grouped_matmul or grouped_dequant_matmul")
 
     def row(kernel, shape, fn, plain, nbytes, ops, library=None):
-        ms = _time_ms(fn)
-        plain_ms = _time_ms(plain, reps=5, warm=1)
-        lib_ms = _time_ms(library) if library is not None else None
+        ms = _time_ms(fn, flush)
+        plain_ms = _time_ms(plain, flush, reps=5, warm=1)
+        lib_ms = _time_ms(library, flush) if library is not None else None
         bound, by = _bound_ms(nbytes, ops)
         r = {"name": kernel, "shape": shape, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
@@ -384,39 +550,61 @@ def phase_times() -> dict:
     for m in (8, 64):
         for k, n in GEMM_SHAPES:
             x, planes = _inputs(m, k, n, gen)
+            packed = ops.pack_planes(planes.flip(0), 8)
+            lib = None
+            if m > 16:
+                w8 = decompose.recompose_weights(
+                    planes.flip(0), 8).to(torch.int8).contiguous()
+                lib = (lambda x=x, w8=w8: torch._int_mm(x, w8))
             for p in (4, 2, 1):
                 pre = planes[:p]
                 sh = decompose.prefix_shifts(p)
-                lib = None
-                if p == 4 and m > 16:
-                    w8 = decompose.recompose_weights(
-                        planes.flip(0), 8).to(torch.int8).contiguous()
-                    lib = (lambda x=x, w8=w8: torch._int_mm(x, w8))
                 row("bitserial_matmul", f"M={m} K={k} N={n} P={p}",
                     lambda pre=pre, sh=sh: bsm.bitserial_matmul(x, pre, sh),
                     lambda pre=pre, sh=sh: ref.bitserial_matmul_ref(x, pre, sh),
-                    m * k + p * k * n + 4 * m * n, 2.0 * m * k * n * p, lib)
+                    m * k + p * k * n + 4 * m * n, 2.0 * m * k * n * p,
+                    lib if p == 4 else None)
+                # The packed store reads one byte per weight at any P.
+                row("packed_bitserial_matmul", f"M={m} K={k} N={n} P={p}",
+                    lambda p=p: bsm.packed_bitserial_matmul(
+                        x, packed, w_bits=8, eff_bits=2 * p),
+                    lambda p=p: ref.packed_bitserial_matmul_ref(
+                        x, packed, 8, 2 * p),
+                    m * k + k * n + 4 * m * n, 2.0 * m * k * n * p,
+                    lib if p == 4 else None)
             mult, xs, ws, rg = _grouped_args(m, n, gen)
-            row("grouped_dequant_matmul", f"M={m} K={k} N={n} Pmax=4",
-                lambda: gmm.grouped_dequant_matmul(x, planes, mult, xs, ws, rg),
-                lambda: ref.grouped_dequant_matmul_ref(x, planes, mult, xs,
-                                                       ws, rg),
-                m * k + 4 * k * n + m * 16 + m * 4 + 3 * n * 4 + m * 4
-                + 2 * m * n, 2.0 * m * k * n * 4)
-            del x, planes
+            scales = m * 16 + m * 4 + 3 * n * 4 + m * 4
+            for label, w, lay in (("", planes, {}),
+                                  (" packed", packed, {"packed": True})):
+                wbytes = w.numel()
+                row("grouped_dequant_matmul", f"M={m} K={k} N={n} Pmax=4{label}",
+                    lambda w=w, lay=lay: gmm.grouped_dequant_matmul(
+                        x, w, mult, xs, ws, rg, **lay),
+                    lambda w=w, lay=lay: ref.grouped_dequant_matmul_ref(
+                        x, w, mult, xs, ws, rg, **lay),
+                    m * k + wbytes + scales + 2 * m * n, 2.0 * m * k * n * 4)
+                row("grouped_matmul", f"M={m} K={k} N={n} Pmax=4{label}",
+                    lambda w=w, lay=lay: gmm.grouped_matmul(x, w, mult, **lay),
+                    lambda w=w, lay=lay: ref.grouped_matmul_ref(x, w, mult,
+                                                                **lay),
+                    m * k + wbytes + m * 16 + 4 * m * n, 2.0 * m * k * n * 4)
+            del x, planes, packed, lib
             torch.cuda.empty_cache()
     return {"rows": rows}
 
 
 # ------------------------------------------------------------------ main
 # The shape each kernel's summary entry reports: its heaviest serving shape
-# on the path that runs it (prefill M=64 for act_quant/bitserial_matmul,
-# mixed-tier decode M=8 for act_quant_rows/grouped_dequant_matmul).
+# on the path that runs it (prefill M=64 for act_quant and the shift GEMMs,
+# mixed-tier decode M=8 for act_quant_rows and the grouped GEMMs; the packed
+# store for grouped_matmul, whose only caller is the kernel-level API).
 SUMMARY_SHAPE = {
     "act_quant": "M=64 K=4096 bits=8",
     "act_quant_rows": "M=8 K=4096",
     "bitserial_matmul": "M=64 K=4096 N=12288 P=4",
     "grouped_dequant_matmul": "M=8 K=4096 N=12288 Pmax=4",
+    "packed_bitserial_matmul": "M=64 K=4096 N=12288 P=4",
+    "grouped_matmul": "M=8 K=4096 N=12288 Pmax=4 packed",
 }
 
 
@@ -435,8 +623,10 @@ def main() -> int:
     out = {}
     t0 = time.perf_counter()
     for phase, run in (("build", phase_build), ("parity", phase_parity),
-                       ("mixed", phase_mixed), ("fixed", phase_fixed),
-                       ("times", phase_times)):
+                       ("mixed", phase_mixed),
+                       ("packed", lambda: phase_packed(
+                           out["mixed"].pop("streams"))),
+                       ("fixed", phase_fixed), ("times", phase_times)):
         t = time.perf_counter()
         out[phase] = run()
         sync()
@@ -450,13 +640,21 @@ def main() -> int:
     kernels = []
     for name, (src, tpu) in KERNELS.items():
         t = by_shape[(name, SUMMARY_SHAPE[name])]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": out["mixed"]["launches"][name],
+            "launches": out[PATH_OF[name]]["launches"][name],
+            "path": PATH_OF[name],
             "max_abs_err": out["parity"]["max_abs_err"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "shape": t["shape"]})
+            "library_ms": t["library_ms"], "shape": t["shape"]}
+        if name == "grouped_dequant_matmul":   # its packed mode, on "packed"
+            tp = by_shape[(name, SUMMARY_SHAPE[name] + " packed")]
+            entry["packed"] = {
+                "launches": out["packed"]["launches"][name],
+                **{key: tp[key] for key in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "shape")}}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(out["build"]["card"])
     print(json.dumps({"ok": True, "device": {

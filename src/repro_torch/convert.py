@@ -7,9 +7,10 @@ The input is a numpy tree in the reference's layout — what
 layer.  bf16 arrays (numpy has no bf16 of its own) travel through a
 ``uint16`` view: ``np.asarray(a).view(np.uint16)`` then
 ``torch.from_numpy(...).view(torch.bfloat16)``, bit for bit.  A prepared
-``repro.kernels.ops.QuantizedWeight`` leaf (planes, scale) becomes the
-port's :class:`~repro_torch.kernels.ops.QuantizedWeight`, so plane stores
-prepared by the two packages can be compared exactly.
+``repro.kernels.ops.QuantizedWeight`` leaf (int8 planes or the uint8
+packed store, and the scale) becomes the port's
+:class:`~repro_torch.kernels.ops.QuantizedWeight`, so stores prepared by
+the two packages can be compared exactly.
 
 This module does not import jax: it receives numpy and recognises a
 prepared weight by its fields.
@@ -24,7 +25,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
-_QW_FIELDS = ("planes", "scale", "w_bits", "signed", "msb_first")
+_QW_FIELDS = ("planes", "packed", "scale", "w_bits", "signed", "msb_first")
 
 
 def to_torch(a: Any, device: Any = None) -> torch.Tensor:
@@ -42,34 +43,41 @@ def _is_quantized(leaf: Any) -> bool:
     return all(hasattr(leaf, f) for f in _QW_FIELDS)
 
 
+def _store(qw: Any) -> Any:
+    """The array a (reference) QuantizedWeight keeps its codes in."""
+    return qw.planes if qw.planes is not None else qw.packed
+
+
 def _take(tree: Any, i: int) -> Any:
     """Layer ``i`` of a period-stacked tree."""
     if isinstance(tree, dict):
         return {k: _take(v, i) for k, v in tree.items()}
     if _is_quantized(tree):
-        if tree.packed is not None:
-            raise NotImplementedError(ops.PACKED_TODO)
-        return _QWView(np.asarray(tree.planes)[i], np.asarray(tree.scale)[i],
-                       tree.w_bits, tree.signed, tree.msb_first)
+        return _QWView(
+            None if tree.planes is None else np.asarray(tree.planes)[i],
+            None if tree.packed is None else np.asarray(tree.packed)[i],
+            np.asarray(tree.scale)[i], tree.w_bits, tree.signed,
+            tree.msb_first)
     return np.asarray(tree)[i]
 
 
 class _QWView:
     """One layer's slice of a stacked reference QuantizedWeight."""
 
-    def __init__(self, planes, scale, w_bits, signed, msb_first):
-        self.planes, self.scale, self.w_bits = planes, scale, w_bits
-        self.signed, self.msb_first, self.packed = signed, msb_first, None
+    def __init__(self, planes, packed, scale, w_bits, signed, msb_first):
+        self.planes, self.packed, self.scale = planes, packed, scale
+        self.w_bits, self.signed, self.msb_first = w_bits, signed, msb_first
 
 
 def _convert(tree: Any, device: Any) -> Any:
     if isinstance(tree, dict):
         return {k: _convert(v, device) for k, v in tree.items()}
     if _is_quantized(tree):
-        if getattr(tree, "packed", None) is not None:
-            raise NotImplementedError(ops.PACKED_TODO)
         return ops.QuantizedWeight(
-            planes=to_torch(tree.planes, device),
+            planes=None if tree.planes is None
+            else to_torch(tree.planes, device),
+            packed=None if tree.packed is None
+            else to_torch(tree.packed, device),
             scale=to_torch(tree.scale, device), w_bits=int(tree.w_bits),
             signed=bool(tree.signed), msb_first=bool(tree.msb_first))
     return to_torch(tree, device)
@@ -82,8 +90,8 @@ def convert_params(params: Dict[str, Any], device: Any = None
     for key, val in params.items():
         if key == "periods":
             first = next(iter(_flat(val)))
-            n = (np.asarray(first.planes).shape[0] if _is_quantized(first)
-                 else np.asarray(first).shape[0])
+            n = np.asarray(_store(first) if _is_quantized(first)
+                           else first).shape[0]
             out["layers"] = [_convert(_take(val, i), device) for i in range(n)]
         else:
             out[key] = _convert(val, device)

@@ -37,14 +37,19 @@ SIGNATURES: Dict[str, str] = {
     "act_quant_f32": "pppiiii",
     "act_quant_rows_f32": "ppppii",
     "bitserial_matmul_s8": "pppiiiiiiiiii",
+    "packed_bitserial_matmul_u8": "pppiiiiiiii",
+    "grouped_matmul_s8": "ppppiiiiii",
+    "grouped_matmul_u8": "ppppiiiiiiii",
     "grouped_dequant_matmul_s8": "pppppppiiiiii",
+    "grouped_dequant_matmul_u8": "pppppppiiiiiiii",
 }
 
 # Launch counts per kernel: each wrapper adds one where it launches its
 # kernel, and nowhere else (chip_smoke.py reads them around the main path).
 LAUNCHES: Dict[str, int] = {
     "act_quant": 0, "act_quant_rows": 0, "bitserial_matmul": 0,
-    "grouped_dequant_matmul": 0}
+    "grouped_dequant_matmul": 0, "packed_bitserial_matmul": 0,
+    "grouped_matmul": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
@@ -157,3 +162,14 @@ def check_cuda(t: torch.Tensor, name: str) -> None:
     raises (CPU tensors never reach here: they take the plain version)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: tensor on {t.device}, expected cuda")
+
+
+def check_operands(name: str, *want) -> None:
+    """Each ``(tensor, dtype)`` pair must be a contiguous tensor of that
+    dtype on the first tensor's device (what the GEMM kernels take)."""
+    dev = want[0][0].device
+    for t, dt in want:
+        if t.dtype != dt or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name}: expected contiguous {dt} on {dev}, got "
+                             f"{t.dtype} on {t.device}"
+                             f"{'' if t.is_contiguous() else ' (strided)'}")

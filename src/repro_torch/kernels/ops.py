@@ -5,7 +5,8 @@ A single ``matmul`` entry point routes through one of the backends of
 ``core.policy.BACKENDS``: ``dense``, ``fake_quant``, ``decomposed`` (plain
 integer plane GEMMs) and ``cuda`` (the hand-written kernels, which take
 their plain versions for CPU tensors).  Integer weights are prepared once
-into a :class:`QuantizedWeight` (planes + per-channel scale).
+into a :class:`QuantizedWeight`: int8 planes, or the byte-packed store (one
+uint8 per weight, ``packed``), plus a per-channel scale.
 
 Mixed-tier decode batches (``matmul(row_groups=, perm=)``) run FUSED by
 default: one per-row-range activation quantization + ONE group-switching
@@ -16,10 +17,9 @@ is bit-identical to.
 The ``decomposed`` backend is plain end to end: its activation
 quantization takes the plain versions in :mod:`ref` (the reference routes
 every backend's to its Pallas kernel, with the same codes), so on the card
-it launches no hand-written kernel and is the ``cuda`` backend's reference.
-Not ported yet: the byte-packed store (``packed``;
-``pack_planes``/``unpack_planes``, ``packed_bitserial_matmul``) and the
-tensor-parallel ``pre_quant`` entry.
+it launches no hand-written kernel and is the ``cuda`` backend's reference;
+like the reference's, it unpacks a packed store into planes.  Not ported
+yet: the tensor-parallel ``pre_quant`` entry.
 """
 from __future__ import annotations
 
@@ -43,19 +43,17 @@ RowGroups = Tuple[Tuple[int, Any], ...]
 # input tensor (see quantize_activations_grouped).
 ActQuants = Dict[Any, Tuple[torch.Tensor, torch.Tensor]]
 
-PACKED_TODO = ("the byte-packed plane store (--packed) is ROADMAP Queue 2 "
-               "rows 5-6, the next slice of the port")
-
 
 @dataclasses.dataclass
 class QuantizedWeight:
     """Decomposed, scaled integer weight — the preloaded array contents.
 
-    ``planes`` int8 [P, K, N]; ``scale`` f32 [1, N] per output channel.
-    ``msb_first=True`` marks a superplane store: quantized once at 8 bits,
-    planes MSB first, so any even effective width ``b`` is served by the
-    first ``b/2`` planes with ``eff_scale(b)``.  ``packed`` stays None until
-    the byte-packed store is ported."""
+    Either ``planes`` int8 [P, K, N] or ``packed`` uint8 [K, N] (every 2-bit
+    plane of a weight in one byte, plane c at bits 2c; even ``w_bits``
+    only); ``scale`` f32 [1, N] per output channel.  ``msb_first=True``
+    marks a superplane store: quantized once at 8 bits, planes MSB first,
+    so any even effective width ``b`` is served by the first ``b/2`` planes
+    with ``eff_scale(b)`` (the packed bytes are the same for both orders)."""
 
     planes: Optional[torch.Tensor]
     scale: torch.Tensor
@@ -66,14 +64,19 @@ class QuantizedWeight:
 
     @property
     def kn(self) -> Tuple[int, int]:
-        assert self.planes is not None
-        return self.planes.shape[1], self.planes.shape[2]
+        if self.planes is not None:
+            return self.planes.shape[1], self.planes.shape[2]
+        assert self.packed is not None
+        return self.packed.shape[0], self.packed.shape[1]
 
     def get_planes(self) -> torch.Tensor:
-        """Planes in this artifact's declared order."""
-        if self.planes is None:
-            raise NotImplementedError(PACKED_TODO)
-        return self.planes
+        """Planes in this artifact's declared order (MSB-first iff
+        ``msb_first``); unpacks the byte store."""
+        if self.planes is not None:
+            return self.planes
+        assert self.packed is not None
+        planes = unpack_planes(self.packed, self.w_bits, self.signed)
+        return planes.flip(0) if self.msb_first else planes
 
     def get_planes_msb(self) -> torch.Tensor:
         """Planes in MSB-first order regardless of the declared order."""
@@ -89,9 +92,9 @@ def prepare_weight(w: torch.Tensor, prec: LayerPrecision,
                    packed: bool = False) -> QuantizedWeight:
     """Quantize (per-channel symmetric) + Table-I decompose a float weight
     [K, N] at a fixed precision.  Even widths quantize nested (the code is
-    the LSB-truncation of the 8-bit code), odd widths round to nearest."""
-    if packed:
-        raise NotImplementedError(PACKED_TODO)
+    the LSB-truncation of the 8-bit code), odd widths round to nearest.
+    ``packed`` stores even widths as one byte per weight; odd widths keep
+    their planes."""
     cfg = quant.QuantConfig(bits=prec.w_bits, signed=prec.w_signed,
                             per_channel=True, channel_axis=-1)
     if prec.w_bits % 2 == 0:
@@ -99,6 +102,10 @@ def prepare_weight(w: torch.Tensor, prec: LayerPrecision,
     else:
         q, scale = quant.quantize(w, cfg)
     planes = decompose.decompose_weights(q, prec.w_bits, signed=prec.w_signed)
+    if packed and prec.w_bits in bsm.PACKED_BITS:
+        return QuantizedWeight(planes=None, scale=scale, w_bits=prec.w_bits,
+                               signed=prec.w_signed,
+                               packed=pack_planes(planes, prec.w_bits))
     return QuantizedWeight(planes=planes, scale=scale, w_bits=prec.w_bits,
                            signed=prec.w_signed)
 
@@ -106,16 +113,66 @@ def prepare_weight(w: torch.Tensor, prec: LayerPrecision,
 def prepare_superplane(w: torch.Tensor, *, signed: bool = True,
                        packed: bool = False) -> QuantizedWeight:
     """Quantize + decompose ONCE at 8 bits into the MSB-first superplane
-    store that serves every even runtime width."""
-    if packed:
-        raise NotImplementedError(PACKED_TODO)
+    store that serves every even runtime width.  ``packed`` packs the
+    LSB-first view of the planes (the byte layout is indexed by plane
+    position, so it serves both orders)."""
     cfg = quant.QuantConfig(bits=quant.MAX_BITS, signed=signed,
                             per_channel=True, channel_axis=-1)
     q8, scale = quant.quantize(w, cfg)
     planes_msb = decompose.decompose_superplanes(q8, signed=signed)
+    if packed:
+        return QuantizedWeight(
+            planes=None, scale=scale, w_bits=quant.MAX_BITS, signed=signed,
+            packed=pack_planes(planes_msb.flip(0), quant.MAX_BITS),
+            msb_first=True)
     return QuantizedWeight(planes=planes_msb.contiguous(), scale=scale,
                            w_bits=quant.MAX_BITS, signed=signed,
                            msb_first=True)
+
+
+def truncate_weight(qw: QuantizedWeight, eff_bits: int) -> QuantizedWeight:
+    """The fixed-precision ``eff_bits`` artifact of a superplane store, in
+    the store's layout: equal to ``prepare_weight`` at ``eff_bits`` without
+    the float weights."""
+    if not qw.msb_first:
+        raise ValueError("truncate_weight needs a superplane (msb_first) store")
+    n = decompose.num_prefix_planes(eff_bits)
+    planes = qw.get_planes()[:n].flip(0).contiguous()
+    scale = qw.eff_scale(eff_bits)
+    if qw.packed is not None:
+        return QuantizedWeight(planes=None, scale=scale, w_bits=eff_bits,
+                               signed=qw.signed,
+                               packed=pack_planes(planes, eff_bits))
+    return QuantizedWeight(planes=planes, scale=scale, w_bits=eff_bits,
+                           signed=qw.signed)
+
+
+def pack_planes(planes: torch.Tensor, w_bits: int) -> torch.Tensor:
+    """All 2-bit LSB-first planes of an even-width weight in one uint8 per
+    weight, plane c at bits [2c, 2c+1]: K*N weight bytes instead of P*K*N."""
+    if w_bits not in bsm.PACKED_BITS:
+        raise ValueError(f"only even widths pack, got {w_bits}")
+    acc = torch.zeros(planes.shape[1:], dtype=torch.uint8,
+                      device=planes.device)
+    for c in range(planes.shape[0]):
+        field = (planes[c].to(torch.int32) & 0x3).to(torch.uint8)
+        acc |= field << (2 * c)
+    return acc
+
+
+def unpack_planes(packed: torch.Tensor, w_bits: int,
+                  signed: bool = True) -> torch.Tensor:
+    """Inverse of :func:`pack_planes`: int8 [P, K, N] LSB-first, the MSB
+    plane signed iff ``signed``.  P counts planes as the reference does,
+    ``num_planes(w_bits)`` at its default ``signed=True``."""
+    p = decompose.num_planes(w_bits)
+    planes = []
+    for c in range(p):
+        field = ((packed >> (2 * c)) & 0x3).to(torch.int32)
+        if signed and c == p - 1:
+            field = torch.where(field >= 2, field - 4, field)
+        planes.append(field.to(torch.int8))
+    return torch.stack(planes)
 
 
 def quantize_activations(x: torch.Tensor, a_bits: int, *,
@@ -160,27 +217,64 @@ def _group_plane_counts(qw: QuantizedWeight,
     return tuple(counts)
 
 
+def _store_args(qw: QuantizedWeight) -> Dict[str, Any]:
+    """Layout arguments of the grouped kernels for ``qw``'s store."""
+    return dict(packed=qw.packed is not None,
+                store_planes=decompose.num_planes(qw.w_bits, qw.signed),
+                signed=qw.signed)
+
+
+def _msb_prefix(qw: QuantizedWeight, pmax: int) -> torch.Tensor:
+    """What the grouped kernels read: the packed store itself, or the first
+    ``pmax`` MSB-first planes."""
+    if qw.packed is not None:
+        return qw.packed
+    return qw.get_planes_msb()[:pmax].contiguous()
+
+
 def bitserial_matmul_planes(x_int8: torch.Tensor, qw: QuantizedWeight, *,
-                            eff_bits: Optional[int] = None) -> torch.Tensor:
-    """Plane GEMM int8 [..., K] x planes -> int32 [..., N] through the
-    ``bitserial_matmul`` kernel wrapper.  ``eff_bits`` below the stored
-    width runtime-truncates a superplane store to its plane prefix, so the
-    work scales with the EFFECTIVE width."""
+                            eff_bits: Optional[int] = None,
+                            row_groups: Optional[Tuple[Tuple[int, int], ...]]
+                            = None) -> torch.Tensor:
+    """Plane GEMM int8 [..., K] x the store -> int32 [..., N] (the port's
+    ``bitserial_matmul_pallas``).  ``eff_bits`` below the stored width
+    runtime-truncates a superplane store to its plane prefix, so the work
+    scales with the EFFECTIVE width: int8 planes go to ``bitserial_matmul``,
+    a packed store to ``packed_bitserial_matmul``.
+
+    ``row_groups`` (``(rows, eff_bits)`` per contiguous group of x's
+    leading axis) runs ONE ``grouped_matmul`` over every group instead, on
+    either layout; extra leading dims scale each group's rows."""
+    lead = x_int8.shape[:-1]
+    k, n = qw.kn
+    x2 = x_int8.reshape(-1, k).contiguous()
+    if row_groups is not None:
+        if sum(r for r, _ in row_groups) != x_int8.shape[0]:
+            raise ValueError(f"row_groups {row_groups} do not cover leading "
+                             f"axis {x_int8.shape[0]}")
+        reps = x2.shape[0] // max(1, x_int8.shape[0])
+        counts = _group_plane_counts(qw, tuple(e for _, e in row_groups))
+        mult, _ = _group_tables(tuple((rows * reps, p) for (rows, _), p
+                                      in zip(row_groups, counts)), x2.device)
+        out = gmm.grouped_matmul(x2, _msb_prefix(qw, int(mult.shape[1])),
+                                 mult, **_store_args(qw))
+        return out.reshape(*lead, n)
     eff = qw.w_bits if eff_bits is None else eff_bits
     if eff != qw.w_bits and not qw.msb_first:
         raise ValueError(
             f"effective {eff}b from a fixed {qw.w_bits}b weight needs a "
             "superplane (msb_first) store")
+    if qw.packed is not None:
+        out = bsm.packed_bitserial_matmul(x2, qw.packed, w_bits=qw.w_bits,
+                                          eff_bits=eff, signed=qw.signed)
+        return out.reshape(*lead, n)
     planes = qw.get_planes()
     if qw.msb_first:
         planes = planes[: decompose.num_prefix_planes(eff)]
         shifts = decompose.prefix_shifts(planes.shape[0])
     else:
         shifts = tuple(2 * c for c in range(planes.shape[0]))
-    lead = x_int8.shape[:-1]
-    k, n = qw.kn
-    out = bsm.bitserial_matmul(x_int8.reshape(-1, k).contiguous(), planes,
-                               shifts)
+    out = bsm.bitserial_matmul(x2, planes, shifts)
     return out.reshape(*lead, n)
 
 
@@ -294,14 +388,15 @@ def fused_decode_linear(x: torch.Tensor, qw: QuantizedWeight,
                     .to(torch.float32).reshape(1, n) for eff in eff_list])
     x2 = x_q.reshape(-1, k).contiguous()
     s2 = x_s.reshape(-1, 1).contiguous()
-    planes = qw.get_planes_msb()[:pmax]
-    if backends[0] == "decomposed":
-        out = ref.grouped_dequant_matmul_ref(x2, planes, mult, s2, ws,
-                                             row_group, out_dtype)
+    if backends[0] == "decomposed":       # unpacks a packed store
+        out = ref.grouped_dequant_matmul_ref(x2, qw.get_planes_msb()[:pmax],
+                                             mult, s2, ws, row_group,
+                                             out_dtype)
     else:
-        out = gmm.grouped_dequant_matmul(x2, planes.contiguous(), mult, s2,
+        out = gmm.grouped_dequant_matmul(x2, _msb_prefix(qw, pmax), mult, s2,
                                          ws.contiguous(), row_group,
-                                         out_dtype=out_dtype)
+                                         out_dtype=out_dtype,
+                                         **_store_args(qw))
     return out.reshape(*lead, n)
 
 
@@ -360,7 +455,7 @@ def matmul(x: torch.Tensor, w: Optional[torch.Tensor], prec: LayerPrecision,
         off = 0
         for rows, gprec in row_groups:
             x_q, x_s = quants[(gprec.a_bits, gprec.a_signed)]
-            outs.append(_dequant_gemm(x_q[off:off + rows], x_s[off:off + rows],
+            outs.append(dequant_matmul(x_q[off:off + rows], x_s[off:off + rows],
                                       qw, gprec, x.dtype))
             off += rows
         return torch.cat(outs, dim=0)
@@ -392,14 +487,15 @@ def _integer_matmul(x: torch.Tensor, qw: QuantizedWeight,
     and only gathers results, so its rows are bitwise identical."""
     x_q, x_s = _quantize_shared(x, prec.a_bits, a_signed,
                                 prec.backend == "decomposed", act_quants)
-    return _dequant_gemm(x_q, x_s, qw, prec, x.dtype)
+    return dequant_matmul(x_q, x_s, qw, prec, x.dtype)
 
 
-def _dequant_gemm(x_q: torch.Tensor, x_s: torch.Tensor, qw: QuantizedWeight,
-                  prec: LayerPrecision, out_dtype: torch.dtype
-                  ) -> torch.Tensor:
-    """Plane-prefix GEMM on quantized activations + scale-out.  The
-    effective width is the policy's ``w_bits`` (at most the stored one)."""
+def dequant_matmul(x_q: torch.Tensor, x_s: torch.Tensor, qw: QuantizedWeight,
+                   prec: LayerPrecision, out_dtype: torch.dtype
+                   ) -> torch.Tensor:
+    """Plane-prefix GEMM on quantized activations + scale-out, the tail of
+    the integer path (public for codes quantized elsewhere).  The effective
+    width is the policy's ``w_bits`` (at most the stored one)."""
     backend = prec.backend
     eff_bits = min(prec.w_bits, qw.w_bits)
     if eff_bits != qw.w_bits and not qw.msb_first:

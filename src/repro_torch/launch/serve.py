@@ -12,6 +12,9 @@ mixed-tier batches):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --reduced --tiers 8/8 4/4 2/2 --requests 9
 
+``--packed`` prepares the byte-packed store (one uint8 per weight in place
+of int8 planes; even widths only, odd ``--w-bits`` keep their planes).
+
 The backend defaults to ``cuda`` (the hand-written kernels) and the device
 to ``cuda``; ``--device cpu`` runs the kernels' plain versions.  Weights
 are random from ``--seed``, made and prepared layer by layer on the device.
@@ -41,6 +44,8 @@ def main(argv=None):
     ap.add_argument("--w-bits", type=int, default=4)
     ap.add_argument("--a-bits", type=int, default=8)
     ap.add_argument("--kv-bits", type=int, default=None, choices=[8])
+    ap.add_argument("--packed", action="store_true",
+                    help="byte-packed store: one uint8 per weight")
     ap.add_argument("--backend", default="cuda",
                     choices=["cuda", "decomposed", "dense"])
     ap.add_argument("--tiers", nargs="+", default=None, metavar="W/A",
@@ -80,11 +85,13 @@ def main(argv=None):
 
         def prepare(tree, prefix):
             return engine_mod.prepare_tree(tree, prep_policy, prefix=prefix,
-                                           superplane=schedule is not None)
+                                           superplane=schedule is not None,
+                                           packed=args.packed)
     t0 = time.time()
     params = model.init(gen, device=device, prepare=prepare)
     kind = ("dense" if prepare is None else
-            "superplane" if schedule else f"w{args.w_bits}")
+            ("superplane" if schedule else f"w{args.w_bits}")
+            + f", packed={args.packed}")
     print(f"initialised {cfg.name} ({kind}) on {device} in "
           f"{time.time() - t0:.1f}s")
     rt = Runtime(policy=policy, schedule=schedule)

@@ -8,6 +8,7 @@ group-layout memo and greedy selection).
   ``PrecisionSchedule`` that is the 8-bit MSB-first superplane store and
   every tier decodes against it by plane-prefix truncation, with zero
   further preparation (``PREPARE_CALLS`` must not move after construction).
+  ``packed=True`` stores one uint8 per weight instead of int8 planes.
 * **Mixed-tier decode batches** — admission fills any free slot; each
   decode chunk derives a ``(tier, rows)`` group layout from the occupied
   slots' tiers plus a slot permutation, and every projection runs one
@@ -72,11 +73,13 @@ def _layer_name(path: Tuple[Any, ...]) -> str:
 
 
 def prepare_tree(tree: Any, policy: PrecisionPolicy, *,
-                 superplane: bool = False, prefix: Tuple[Any, ...] = (),
+                 superplane: bool = False, packed: bool = False,
+                 prefix: Tuple[Any, ...] = (),
                  paths: Optional[List[str]] = None) -> Any:
     """A copy of ``tree`` (dicts and lists of tensors) with every projection
     weight — a 2D ``w`` outside the embedding — replaced by its
-    QuantizedWeight (the superplane store if ``superplane``).  ``prefix``
+    QuantizedWeight (the superplane store if ``superplane``; byte-packed
+    if ``packed``).  ``prefix``
     is the key path of ``tree`` inside the full params, which names each
     weight for the policy lookup.  Does not count as a ``prepare_params``
     call: it is the per-subtree worker (``LM.init``'s prepare hook)."""
@@ -93,22 +96,26 @@ def prepare_tree(tree: Any, policy: PrecisionPolicy, *,
                         "Queue 1 item 9")
                 prec = policy.lookup(_layer_name(path))
                 w = val.to(torch.float32)
-                out[key] = (ops.prepare_superplane(w, signed=prec.w_signed)
-                            if superplane else ops.prepare_weight(w, prec))
+                out[key] = (ops.prepare_superplane(w, signed=prec.w_signed,
+                                                   packed=packed)
+                            if superplane
+                            else ops.prepare_weight(w, prec, packed=packed))
                 if paths is not None:
                     paths.append(".".join(map(str, path)))
             else:
                 out[key] = prepare_tree(val, policy, superplane=superplane,
-                                        prefix=path, paths=paths)
+                                        packed=packed, prefix=path,
+                                        paths=paths)
         return out
     if isinstance(tree, list):
-        return [prepare_tree(v, policy, superplane=superplane,
+        return [prepare_tree(v, policy, superplane=superplane, packed=packed,
                              prefix=prefix + (i,), paths=paths)
                 for i, v in enumerate(tree)]
     return tree
 
 
 def prepare_params(params: Any, policy: PrecisionPolicy, model: LM,
+                   packed: bool = False,
                    superplane: bool = False) -> Tuple[Any, List[str]]:
     """Quantize + decompose every policy-covered projection weight offline.
     Returns (prepared params, key paths of the prepared weights)."""
@@ -116,7 +123,8 @@ def prepare_params(params: Any, policy: PrecisionPolicy, model: LM,
     global PREPARE_CALLS
     PREPARE_CALLS += 1
     paths: List[str] = []
-    out = prepare_tree(params, policy, superplane=superplane, paths=paths)
+    out = prepare_tree(params, policy, superplane=superplane, packed=packed,
+                       paths=paths)
     return out, paths
 
 
@@ -135,16 +143,17 @@ def _params_prepared(params: Any) -> bool:
     return any(isinstance(l, ops.QuantizedWeight) for l in _leaves(params))
 
 
-def _ensure_prepared(params: Any, rt: Runtime, model: LM) -> Any:
+def _ensure_prepared(params: Any, rt: Runtime, model: LM,
+                     packed: bool) -> Any:
     """Weight preload: prepare the plane tree once at construction unless
     the caller already did.  A schedule gets the superplane store."""
     if _params_prepared(params):
         return params
     if rt.schedule is not None:
         return prepare_params(params, rt.schedule.prepare_policy(), model,
-                              superplane=True)[0]
+                              packed=packed, superplane=True)[0]
     if rt.policy.default.backend in INTEGER_BACKENDS:
-        return prepare_params(params, rt.policy, model)[0]
+        return prepare_params(params, rt.policy, model, packed=packed)[0]
     return params
 
 
@@ -200,14 +209,16 @@ class ServeEngine:
     runs ``decode_chunk`` steps per round.  With a ``PrecisionSchedule`` on
     the runtime, slots are tier-tagged and each chunk serves the occupied
     tiers together (``fused_decode``: one group-switching GEMM per
-    projection, else the per-group reference loop).  Everything runs on
+    projection, else the per-group reference loop).  ``packed`` prepares
+    unprepared params as the byte-packed store.  Everything runs on
     ``device`` (default cuda); the params must live there."""
 
     def __init__(self, model: LM, params: Any, rt: Runtime, *,
                  max_batch: int = 8, max_len: int = 512,
                  kv_bits: Optional[int] = None, decode_chunk: int = 8,
-                 prompt_bucket: int = 8, fused_decode: bool = True,
-                 mesh: Optional[Any] = None, device: Any = None) -> None:
+                 prompt_bucket: int = 8, packed: bool = False,
+                 fused_decode: bool = True, mesh: Optional[Any] = None,
+                 device: Any = None) -> None:
         if mesh is not None:
             raise NotImplementedError(TODO_MESH)
         if rt.schedule is not None and rt.schedule.kv_tiers is not None:
@@ -220,7 +231,7 @@ class ServeEngine:
         self.kv_bits = kv_bits
         self.decode_chunk = max(1, decode_chunk)
         self.prompt_bucket = max(1, prompt_bucket)
-        self.params = _ensure_prepared(params, rt, model)
+        self.params = _ensure_prepared(params, rt, model, packed)
         self.schedule = rt.schedule
         self.arena = slots_lib.SlotArena(model, max_batch, max_len,
                                          kv_bits=kv_bits, device=self.device)

@@ -1,0 +1,109 @@
+"""Shared by the port's serving tests: the JAX package's reduced qwen3-8b,
+its weights converted into the port, and its ``ServeEngine`` run in a
+subprocess.
+
+The reference engine runs with
+``XLA_FLAGS=--xla_allow_excess_precision=false``: by default XLA:CPU keeps
+bf16 intermediates in f32 under jit and skips the roundings the source
+writes, while the port (like the reference run op by op) rounds where the
+source casts; with the flag the jitted reference computes exactly its
+source's arithmetic (test_torch_model.py shows the default-flag gap).  A
+subprocess keeps the flag away from every other test in the worker.
+"""
+import hashlib
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import numpy as np
+
+from repro.configs import reduced_config as jreduced
+from repro.models.transformer import LM as JLM
+from repro_torch.convert import convert_params
+from repro_torch.serve.request import Request
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+TIERS = {"8/8": (8, 8), "4/4": (4, 4), "2/2": (2, 2)}
+ENGINE_KW = dict(max_batch=4, max_len=64, decode_chunk=8)
+
+# Runs the reference engine; prints the streams and a checksum of the
+# weights it served (the parent makes the same weights from the same key).
+REFERENCE = r"""
+import hashlib, json, sys
+import jax, numpy as np
+from repro.configs import reduced_config
+from repro.core.policy import uniform_schedule
+from repro.models.layers import Runtime
+from repro.models.transformer import LM
+from repro.serve.engine import Request, ServeEngine
+spec = json.loads(sys.argv[1])
+model = LM(reduced_config("qwen3-8b"))
+params = model.init(jax.random.PRNGKey(0))
+h = hashlib.sha1()
+for leaf in jax.tree.leaves(params):
+    h.update(np.ascontiguousarray(np.asarray(leaf)).tobytes())
+sched = uniform_schedule({t: tuple(b) for t, b in spec["tiers"].items()},
+                         backend="decomposed")
+rt = Runtime(policy=sched.policy_for(), mode="serve", schedule=sched)
+eng = ServeEngine(model, params, rt, packed=spec["packed"], **spec["engine"])
+reqs = [Request(uid=r["uid"], prompt=np.asarray(r["prompt"], np.int32),
+                max_new_tokens=r["max_new"], tier=r["tier"])
+        for r in spec["requests"]]
+out = eng.run(reqs)
+print(json.dumps({"checksum": h.hexdigest(),
+                  "streams": {str(k): v for k, v in out.items()}}))
+"""
+
+
+def _checksum(params) -> str:
+    h = hashlib.sha1()
+    for leaf in jax.tree.leaves(params):
+        h.update(np.ascontiguousarray(np.asarray(leaf)).tobytes())
+    return h.hexdigest()
+
+
+def reference_streams(engine_kw, specs, *, packed=False):
+    """Greedy streams {uid: tokens} of the reference's mixed-tier
+    ServeEngine (``TIERS``, decomposed backend) on reduced qwen3-8b with
+    ``PRNGKey(0)`` weights, and the checksum of those weights."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env["JAX_PLATFORMS"] = "cpu"
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") +
+                        " --xla_allow_excess_precision=false").strip()
+    spec = {"engine": engine_kw, "requests": specs, "tiers": TIERS,
+            "packed": packed}
+    proc = subprocess.run([sys.executable, "-c", REFERENCE, json.dumps(spec)],
+                          capture_output=True, text=True, env=env,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    ref = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {int(k): v for k, v in ref["streams"].items()}, ref["checksum"]
+
+
+def reference_weights():
+    """(reference model, its PRNGKey(0) params, checksum, the params
+    converted into the port on the CPU)."""
+    jm = JLM(jreduced("qwen3-8b"))
+    jp = jm.init(jax.random.PRNGKey(0))
+    return jm, jp, _checksum(jp), convert_params(
+        jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def request_specs():
+    """Nine requests round-robin over ``TIERS``, as JSON-able dicts."""
+    rng = np.random.default_rng(1)
+    return [{"uid": i,
+             "prompt": rng.integers(0, 512, size=4 + (i * 3) % 11).tolist(),
+             "max_new": 1 + (i * 5) % 12, "tier": list(TIERS)[i % 3]}
+            for i in range(9)]
+
+
+def to_requests(specs, tiered=True):
+    """The port's Requests for ``specs`` (tier-less unless ``tiered``)."""
+    return [Request(uid=s["uid"], prompt=np.asarray(s["prompt"], np.int32),
+                    max_new_tokens=s["max_new"],
+                    tier=s["tier"] if tiered else None) for s in specs]

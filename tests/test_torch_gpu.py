@@ -1,8 +1,8 @@
 """repro_torch on a CUDA card: every kernel wrapper launches its kernel for
 a CUDA tensor (and counts it), equals its plain version bit for bit, and
 refuses what the kernel does not take; a reduced engine serves through
-the kernels.  Needs no jax.  Every test skips without a card (decided in
-the ``gen`` fixture); on the card:
+the kernels.  Needs no jax.  Every test is marked ``gpu`` and skips
+without a card (decided in the ``gen`` fixture); on the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 """
@@ -12,16 +12,18 @@ import torch
 
 from repro_torch.configs import reduced_config
 from repro_torch.core import decompose
-from repro_torch.core.policy import uniform_schedule
+from repro_torch.core.policy import uniform_policy, uniform_schedule
 from repro_torch.kernels import _build
 from repro_torch.kernels import act_quant as aq
 from repro_torch.kernels import bitserial_matmul as bsm
 from repro_torch.kernels import grouped_matmul as gmm
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import Runtime
 from repro_torch.models.transformer import LM
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.request import Request
+
+pytestmark = pytest.mark.gpu
 
 
 @pytest.fixture
@@ -80,6 +82,30 @@ def test_gemm_kernels(gen, m, k, n):
                                                       rg))
     assert torch.equal(got, ref.grouped_dequant_matmul_ref(x, planes, mult,
                                                            xs, ws, rg))
+    # The byte-packed store of the same weights, both signs.
+    packed = ops.pack_planes(planes.flip(0), 8)
+    for signed in (True, False):
+        lay = dict(packed=True, signed=signed)
+        got = _counted("grouped_dequant_matmul",
+                       lambda: gmm.grouped_dequant_matmul(
+                           x, packed, mult, xs, ws, rg, **lay))
+        assert torch.equal(got, ref.grouped_dequant_matmul_ref(
+            x, packed, mult, xs, ws, rg, **lay))
+        got = _counted("grouped_matmul",
+                       lambda: gmm.grouped_matmul(x, packed, mult, **lay))
+        assert torch.equal(got, ref.grouped_matmul_ref(x, packed, mult, **lay))
+    got = _counted("grouped_matmul", lambda: gmm.grouped_matmul(x, planes, mult))
+    assert torch.equal(got, ref.grouped_matmul_ref(x, planes, mult))
+    for w_bits in (2, 4, 6, 8):
+        wp = packed & ((1 << w_bits) - 1)
+        for eff in range(2, w_bits + 1, 2):
+            for signed in (True, False):
+                got = _counted("packed_bitserial_matmul",
+                               lambda: bsm.packed_bitserial_matmul(
+                                   x, wp, w_bits=w_bits, eff_bits=eff,
+                                   signed=signed))
+                assert torch.equal(got, ref.packed_bitserial_matmul_ref(
+                    x, wp, w_bits, eff, signed)), (w_bits, eff, signed)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -89,6 +115,32 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         bsm.bitserial_matmul(x, planes, (0,))
     with pytest.raises(ValueError, match="contiguous"):
         aq.act_quant(torch.randn((64, 4), device="cuda").T)
+    xi = x.to(torch.int8)
+    packed = torch.zeros((64, 8), dtype=torch.uint8, device="cuda")
+    mult = torch.ones((4, 1), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="uint8"):
+        bsm.packed_bitserial_matmul(xi, packed.to(torch.int8), w_bits=8)
+    with pytest.raises(ValueError, match="int8"):
+        bsm.packed_bitserial_matmul(x, packed, w_bits=8)
+    with pytest.raises(ValueError, match="strided"):
+        bsm.packed_bitserial_matmul(xi, torch.zeros(
+            (8, 64), dtype=torch.uint8, device="cuda").T, w_bits=8)
+    with pytest.raises(ValueError, match="packed=True takes a uint8"):
+        gmm.grouped_matmul(xi, planes, mult, packed=True)
+    with pytest.raises(ValueError, match="packed=False takes planes"):
+        gmm.grouped_matmul(xi, packed, mult)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="int32"):
+        gmm.grouped_matmul(xi, packed, mult.to(torch.int64), packed=True)
+    assert _build.LAUNCHES == before
+
+
+def _engine_requests(tiers):
+    rng = np.random.default_rng(0)
+    return [Request(uid=i, prompt=rng.integers(0, 512, size=5 + i)
+                    .astype(np.int32), max_new_tokens=6,
+                    tier=None if tiers is None else list(tiers)[i % 3])
+            for i in range(6)]
 
 
 def test_reduced_engine_serves_through_the_kernels(gen):
@@ -96,10 +148,7 @@ def test_reduced_engine_serves_through_the_kernels(gen):
     model = LM(cfg)
     params = model.init(gen, device="cuda")
     tiers = {"8/8": (8, 8), "4/4": (4, 4), "2/2": (2, 2)}
-    rng = np.random.default_rng(0)
-    reqs = [Request(uid=i, prompt=rng.integers(0, 512, size=5 + i)
-                    .astype(np.int32), max_new_tokens=6,
-                    tier=list(tiers)[i % 3]) for i in range(6)]
+    reqs = _engine_requests(tiers)
     outs = []
     for backend in ("cuda", "decomposed"):
         sched = uniform_schedule(tiers, backend=backend)
@@ -109,8 +158,36 @@ def test_reduced_engine_serves_through_the_kernels(gen):
         _build.reset_launches()
         outs.append(eng.run(reqs))
         if backend == "cuda":
-            assert all(v > 0 for v in _build.LAUNCHES.values()), \
-                _build.LAUNCHES
+            used = ("act_quant", "act_quant_rows", "bitserial_matmul",
+                    "grouped_dequant_matmul")
+            assert all(_build.LAUNCHES[k] > 0 for k in used), _build.LAUNCHES
         else:                               # the plain reference launches none
             assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("tiered", [True, False])
+def test_reduced_packed_engine_serves_through_the_kernels(gen, tiered):
+    """ServeEngine(packed=True) prepares the byte store and decodes through
+    the packed GEMMs only; its streams equal the int8-plane store's."""
+    cfg = reduced_config("qwen3-8b")
+    model = LM(cfg)
+    params = model.init(gen, device="cuda")
+    tiers = {"8/8": (8, 8), "4/4": (4, 4), "2/2": (2, 2)} if tiered else None
+    if tiered:
+        sched = uniform_schedule(tiers, backend="cuda")
+        rt = Runtime(policy=sched.policy_for(), schedule=sched)
+    else:
+        rt = Runtime(policy=uniform_policy(4, 8, backend="cuda"))
+    reqs = _engine_requests(tiers)
+    outs = []
+    for packed in (False, True):
+        eng = ServeEngine(model, params, rt, max_batch=4, max_len=32,
+                          packed=packed)
+        _build.reset_launches()
+        outs.append(eng.run(reqs))
+    assert outs[0] == outs[1]
+    assert _build.LAUNCHES["bitserial_matmul"] == 0
+    used = ("act_quant", "packed_bitserial_matmul") + \
+        (("act_quant_rows", "grouped_dequant_matmul") if tiered else ())
+    assert all(_build.LAUNCHES[k] > 0 for k in used), _build.LAUNCHES

@@ -243,8 +243,18 @@ def test_wrappers_check_their_inputs():
                                           device="meta"),
                               torch.zeros((1, 8, 4), dtype=torch.int8,
                                           device="meta"), (0,))
-    with pytest.raises(NotImplementedError, match="packed"):
-        tops.prepare_superplane(torch.zeros((8, 4)), packed=True)
+    with pytest.raises(ValueError, match="uint8"):
+        tbsm.packed_bitserial_matmul(torch.zeros((2, 8), dtype=torch.int8),
+                                     torch.zeros((8, 4), dtype=torch.int8),
+                                     w_bits=8)
+    with pytest.raises(ValueError, match="eff_bits 8"):
+        tbsm.packed_bitserial_matmul(torch.zeros((2, 8), dtype=torch.int8),
+                                     torch.zeros((8, 4), dtype=torch.uint8),
+                                     w_bits=4, eff_bits=8)
+    with pytest.raises(ValueError, match="packed=False takes planes"):
+        tgmm.grouped_matmul(torch.zeros((2, 8), dtype=torch.int8),
+                            torch.zeros((8, 4), dtype=torch.uint8),
+                            torch.ones((2, 1), dtype=torch.int32))
 
 
 def test_plain_versions_on_edge_shapes():

@@ -4,29 +4,15 @@ the reference's serving invariants re-asserted within the port.
 Greedy streams must EQUAL the reference engine's on the same requests and
 converted weights (reduced qwen3-8b, tiers 8/8 4/4 2/2, max_batch 4).  The
 reference engine runs in a subprocess with
-``XLA_FLAGS=--xla_allow_excess_precision=false``: by default XLA:CPU keeps
-bf16 intermediates in f32 under jit and skips the roundings the source
-writes, while the port (like the reference run op by op) rounds where the
-source casts; with the flag the jitted reference computes exactly its
-source's arithmetic (test_torch_model.py shows the default-flag gap).  A
-subprocess keeps the flag away from every other test in this worker.
+``XLA_FLAGS=--xla_allow_excess_precision=false`` (see _torch_reference.py).
 """
-import hashlib
-import json
-import os
-import pathlib
-import subprocess
-import sys
-
-import jax
 import numpy as np
 import pytest
 import torch
 
-from repro.configs import reduced_config as jreduced
-from repro.models.transformer import LM as JLM
+from _torch_reference import (ENGINE_KW, TIERS, reference_streams,
+                              reference_weights, request_specs, to_requests)
 from repro_torch.configs import reduced_config
-from repro_torch.convert import convert_params
 from repro_torch.core.policy import uniform_policy, uniform_schedule
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.layers import Runtime
@@ -38,75 +24,14 @@ from repro_torch.serve.handle import RequestStatus
 from repro_torch.serve.request import Request
 from repro_torch.serve.scheduler import Scheduler
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
-TIERS = {"8/8": (8, 8), "4/4": (4, 4), "2/2": (2, 2)}
-ENGINE_KW = dict(max_batch=4, max_len=64, decode_chunk=8)
-
-# Runs the reference engine; prints the streams and a checksum of the
-# weights it served (the parent makes the same weights from the same key).
-REFERENCE = r"""
-import hashlib, json, sys
-import jax, numpy as np
-from repro.configs import reduced_config
-from repro.core.policy import uniform_schedule
-from repro.models.layers import Runtime
-from repro.models.transformer import LM
-from repro.serve.engine import Request, ServeEngine
-tiers = {"8/8": (8, 8), "4/4": (4, 4), "2/2": (2, 2)}
-model = LM(reduced_config("qwen3-8b"))
-params = model.init(jax.random.PRNGKey(0))
-h = hashlib.sha1()
-for leaf in jax.tree.leaves(params):
-    h.update(np.ascontiguousarray(np.asarray(leaf)).tobytes())
-sched = uniform_schedule(tiers, backend="decomposed")
-rt = Runtime(policy=sched.policy_for(), mode="serve", schedule=sched)
-spec = json.loads(sys.argv[1])
-eng = ServeEngine(model, params, rt, **spec["engine"])
-reqs = [Request(uid=r["uid"], prompt=np.asarray(r["prompt"], np.int32),
-                max_new_tokens=r["max_new"], tier=r["tier"])
-        for r in spec["requests"]]
-out = eng.run(reqs)
-print(json.dumps({"checksum": h.hexdigest(),
-                  "streams": {str(k): v for k, v in out.items()}}))
-"""
-
-
-def _request_specs():
-    rng = np.random.default_rng(1)
-    return [{"uid": i,
-             "prompt": rng.integers(0, 512, size=4 + (i * 3) % 11).tolist(),
-             "max_new": 1 + (i * 5) % 12, "tier": list(TIERS)[i % 3]}
-            for i in range(9)]
-
-
-def _requests(specs, tiered=True):
-    return [Request(uid=s["uid"], prompt=np.asarray(s["prompt"], np.int32),
-                    max_new_tokens=s["max_new"],
-                    tier=s["tier"] if tiered else None) for s in specs]
-
 
 @pytest.fixture(scope="module")
 def setup():
     """Reference streams (subprocess) + the same weights converted."""
-    specs = _request_specs()
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT / "src")
-    env["JAX_PLATFORMS"] = "cpu"
-    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") +
-                        " --xla_allow_excess_precision=false").strip()
-    proc = subprocess.run(
-        [sys.executable, "-c", REFERENCE,
-         json.dumps({"engine": ENGINE_KW, "requests": specs})],
-        capture_output=True, text=True, env=env, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    ref = json.loads(proc.stdout.strip().splitlines()[-1])
-    jp = JLM(jreduced("qwen3-8b")).init(jax.random.PRNGKey(0))
-    h = hashlib.sha1()
-    for leaf in jax.tree.leaves(jp):
-        h.update(np.ascontiguousarray(np.asarray(leaf)).tobytes())
-    assert h.hexdigest() == ref["checksum"]
-    params = convert_params(jax.tree.map(np.asarray, jp), device="cpu")
-    streams = {int(k): v for k, v in ref["streams"].items()}
+    specs = request_specs()
+    streams, checksum = reference_streams(ENGINE_KW, specs)
+    _, _, mine, params = reference_weights()
+    assert mine == checksum
     return LM(reduced_config("qwen3-8b")), params, specs, streams
 
 
@@ -121,7 +46,7 @@ def _tiered_engine(model, params, backend="cuda", **kw):
 def test_streams_equal_reference_engine(setup, backend):
     model, params, specs, ref = setup
     eng = _tiered_engine(model, params, backend)
-    out = eng.run(_requests(specs))
+    out = eng.run(to_requests(specs))
     assert out == ref
     assert eng.stats.mixed_tier_chunks > 0
     assert sum(eng.stats.tokens_by_tier.values()) == \
@@ -137,7 +62,7 @@ def test_mixed_tiers_equal_fixed_tier_engines(setup):
         eng = ServeEngine(model, params, Runtime(policy=sched.policy_for(tier)),
                           device="cpu", **ENGINE_KW)
         mine = [s for s in specs if s["tier"] == tier]
-        out = eng.run(_requests(mine, tiered=False))
+        out = eng.run(to_requests(mine, tiered=False))
         assert out == {s["uid"]: ref[s["uid"]] for s in mine}, tier
 
 
@@ -147,20 +72,20 @@ def test_fused_equals_per_group_and_no_prepare_after_construction(setup):
     fused = _tiered_engine(model, params)
     per_group = _tiered_engine(model, params, fused_decode=False)
     assert engine_mod.PREPARE_CALLS == before + 2
-    assert per_group.run(_requests(specs)) == fused.run(_requests(specs)) \
+    assert per_group.run(to_requests(specs)) == fused.run(to_requests(specs)) \
         == ref
     assert engine_mod.PREPARE_CALLS == before + 2
     # A prepared store is served as is by a second engine.
     again = _tiered_engine(model, fused.params)
     assert engine_mod.PREPARE_CALLS == before + 2
-    assert again.run(_requests(specs[:3])) == {s["uid"]: ref[s["uid"]]
+    assert again.run(to_requests(specs[:3])) == {s["uid"]: ref[s["uid"]]
                                                for s in specs[:3]}
 
 
 def test_streaming_handles_and_events(setup):
     model, params, specs, ref = setup
     eng = _tiered_engine(model, params)
-    handles = [eng.submit(r) for r in _requests(specs)]
+    handles = [eng.submit(r) for r in to_requests(specs)]
     assert all(h.status is RequestStatus.QUEUED for h in handles)
     seen = {h.uid: [] for h in handles}
     handles[0].on_token(lambda ev: seen[ev.uid].append(ev))
@@ -229,7 +154,7 @@ def test_int8_kv_engine_serves_and_reuses_slots(setup):
         pol = uniform_policy(4, 8, backend=backend)
         eng = ServeEngine(model, params, Runtime(policy=pol), kv_bits=8,
                           device="cpu", **ENGINE_KW)
-        outs.append(eng.run(_requests(specs, tiered=False)))
+        outs.append(eng.run(to_requests(specs, tiered=False)))
         assert eng.stats.prefills == len(specs)
     assert outs[0] == outs[1]
     assert all(len(outs[0][s["uid"]]) == s["max_new"] for s in specs)
@@ -275,7 +200,10 @@ def test_scheduler_fifo():
 @pytest.mark.parametrize("argv", [
     ["--tiers", "8/8", "4/4", "2/2", "--requests", "5"],
     ["--w-bits", "4", "--kv-bits", "8", "--requests", "3"],
-    ["--backend", "dense", "--requests", "2"]])
+    ["--backend", "dense", "--requests", "2"],
+    ["--tiers", "8/8", "4/4", "2/2", "--packed", "--requests", "4"],
+    ["--w-bits", "6", "--packed", "--backend", "decomposed", "--requests",
+     "3"]])
 def test_serve_cli_on_cpu(argv):
     out = serve_cli.main(["--reduced", "--device", "cpu", "--max-new", "5",
                           "--max-len", "32"] + argv)
