@@ -6,11 +6,17 @@
 Phases, in order (any failure exits non-zero and prints no result line):
 
 1. build    nvcc builds the six kernels from ``src/repro_torch/kernels/csrc``
-            into ``build/kernels/``; prints the build seconds and the card.
+            into ``build/kernels/``; prints the build seconds and the card,
+            and for every instantiation of kernels 3 and 5 (the
+            tensor-core core ``plane_mma.cuh``) its IMMA and LDGSTS/UTMALDG
+            counts in ``cuobjdump -sass`` and ptxas' spill bytes; fails if
+            one has no IMMA or no asynchronous copy.
 2. parity   each kernel against its plain PyTorch version at the serving
             shapes (M in {8, 64}; K=4096 -> N in {4096, 1024, 12288, 152064};
             K=12288 -> N=4096) and one ragged shape (M=5, K=4100, N=1000):
-            bit-equal, tolerance 0.  The packed GEMM runs every stored width
+            bit-equal, tolerance 0.  Kernels 3 and 5 also run M in
+            {16, 17, 40} at the serving shapes (prefill buckets, a ragged
+            row tile).  The packed GEMM runs every stored width
             2/4/6/8 at every even effective width, signed and unsigned; the
             grouped GEMMs run both layouts with three tier groups.  This
             phase's launches are the only ones of ``grouped_matmul``, which
@@ -48,6 +54,7 @@ from __future__ import annotations
 import gc
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -101,6 +108,7 @@ def phase_build() -> dict:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()}")
+    _sass_report(_build)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -109,6 +117,66 @@ def phase_build() -> dict:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
     log(f"[build] card: {card}")
     return {"build_seconds": secs, "card": card}
+
+
+# The shift GEMMs' instantiations: plane_mma::shift_gemm_kernel<BM, BK, kPacked>.
+SHIFT_GEMM_SYMBOL = re.compile(r"shift_gemm_kernelILi(\d+)ELi(\d+)ELb([01])E")
+SHIFT_GEMM_KERNEL = {"0": "bitserial_matmul", "1": "packed_bitserial_matmul"}
+
+
+def _instance(sym) -> str:
+    return f"{SHIFT_GEMM_KERNEL[sym.group(3)]}<BM={sym.group(1)},BK={sym.group(2)}>"
+
+
+def _sass_report(build) -> None:
+    """Counts, in ``cuobjdump -sass`` of the built library, the int8
+    tensor-core MMAs (IMMA) and asynchronous copies (LDGSTS = cp.async,
+    UTMALDG = TMA) of every instantiation of kernels 3 and 5, with ptxas'
+    spill bytes; fails if either kernel has an instantiation without IMMA
+    or without an asynchronous copy."""
+    tool = pathlib.Path(build._nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-sass", build.build_info["path"]],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {res.stderr.strip()}")
+    ops = ("IMMA", "LDGSTS", "UTMALDG")
+    counts: dict = {}
+    current = None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            sym = SHIFT_GEMM_SYMBOL.search(line)
+            current = None if sym is None else _instance(sym)
+            if current is not None:
+                counts[current] = dict.fromkeys(ops, 0)
+        elif current is not None:
+            for op in re.findall(r"\b(IMMA|LDGSTS|UTMALDG)\b", line):
+                counts[current][op] += 1
+    # ptxas -v: "Function properties for <symbol>" then the spill line.
+    spills: dict = {}
+    log_text = build.build_info.get("ptxas", {}).get("bitserial_matmul.cu", "")
+    lines = log_text.splitlines()
+    for i, line in enumerate(lines):
+        sym = SHIFT_GEMM_SYMBOL.search(line)
+        if sym and "Function properties" in line and i + 1 < len(lines):
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", lines[i + 1])
+            if spill:
+                spills[_instance(sym)] = int(spill.group(1)) + \
+                    int(spill.group(2))
+    for name in sorted(counts):
+        spill = spills.get(name, "not available (library built earlier)")
+        log(f"[build] sass {name}: " + ", ".join(
+            f"{op} {counts[name][op]}" for op in ops) + f", spill bytes {spill}")
+    for kernel in SHIFT_GEMM_KERNEL.values():
+        mine = {k: v for k, v in counts.items() if k.startswith(kernel + "<")}
+        if not mine:
+            raise AssertionError(f"{kernel}: no instantiation in the SASS")
+        for name, c in mine.items():
+            if c["IMMA"] == 0:
+                raise AssertionError(f"{name}: no IMMA in its SASS")
+            if c["LDGSTS"] + c["UTMALDG"] == 0:
+                raise AssertionError(f"{name}: no asynchronous copy in its "
+                                     "SASS")
 
 
 # --------------------------------------------------------------- phase 2
@@ -232,6 +300,27 @@ def phase_parity() -> dict:
              gmm.grouped_matmul(x, w4, mult4, packed=True, store_planes=2),
              ref.grouped_matmul_ref(x, w4, mult4, packed=True, store_planes=2))
         del x, planes, packed, w4
+        sync()
+        torch.cuda.empty_cache()
+    # The shift GEMMs at the prefill buckets' row counts and a ragged row
+    # tile (M = 17), every plane count and truncation.
+    for m, k, n in [(m, k, n) for m in (16, 17, 40) for k, n in GEMM_SHAPES]:
+        x, planes = _inputs(m, k, n, gen)
+        for p in (1, 2, 3, 4):
+            for shifts in (decompose.prefix_shifts(p),
+                           tuple(2 * c for c in range(p))):
+                hold("bitserial_matmul",
+                     bsm.bitserial_matmul(x, planes[:p], shifts),
+                     ref.bitserial_matmul_ref(x, planes[:p], shifts))
+        packed = ops.pack_planes(planes.flip(0), 8)
+        for eff in (2, 4, 6, 8):
+            for signed in (True, False):
+                hold("packed_bitserial_matmul",
+                     bsm.packed_bitserial_matmul(x, packed, w_bits=8,
+                                                 eff_bits=eff, signed=signed),
+                     ref.packed_bitserial_matmul_ref(x, packed, 8, eff,
+                                                     signed))
+        del x, planes, packed
         sync()
         torch.cuda.empty_cache()
     launches = dict(_build.LAUNCHES)

@@ -36,8 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SIGNATURES: Dict[str, str] = {
     "act_quant_f32": "pppiiii",
     "act_quant_rows_f32": "ppppii",
-    "bitserial_matmul_s8": "pppiiiiiiiiii",
-    "packed_bitserial_matmul_u8": "pppiiiiiiii",
+    "bitserial_matmul_s8": "pppiiiiiiiiiiiiii",
+    "packed_bitserial_matmul_u8": "pppiiiiiiiiiiii",
     "grouped_matmul_s8": "ppppiiiiii",
     "grouped_matmul_u8": "ppppiiiiiiii",
     "grouped_dequant_matmul_s8": "pppppppiiiiii",

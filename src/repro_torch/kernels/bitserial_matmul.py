@@ -3,11 +3,14 @@
 Replace ``repro.kernels.bitserial_matmul.bitserial_matmul`` and
 ``packed_bitserial_matmul`` (Pallas).  A CPU tensor takes the plain version
 (:mod:`repro_torch.kernels.ref`); a CUDA tensor launches the kernel or
-raises.
+raises.  :func:`plan` chooses each launch's row tile, K stage depth and K
+slices (split-K); it is pure Python, so the CPU tests hold it.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import functools
+import math
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -15,10 +18,92 @@ from repro_torch.kernels import _build, ref
 
 PACKED_BITS = (2, 4, 6, 8)      # widths the byte-packed store holds
 
+# The shared-memory layout of csrc/plane_mma.cuh (kBN, kStages, kXPad,
+# kMaxSmem).  The plan's ``smem`` is passed to the kernel, which refuses a
+# launch whose request differs from its own layout's, so a change on either
+# side fails every launch on the card (tests/test_torch_gpu.py).
+BN = 128                        # output columns per block
+STAGES = 4                      # slots of the cp.async ring
+X_PAD = 16                      # padding bytes per x row in shared memory
+MAX_SMEM = 227 * 1024           # dynamic shared memory a block may use
+ROW_TILES = (16, 32, 64)        # rows per block (one to four m16 MMA tiles)
+STAGE_WEIGHT_BYTES = 16 * 1024  # raw weight bytes per stage, the aim
+BLOCKS_PER_SM = 2               # resident blocks the shared memory allows
+MIN_SLICE_STAGES = 2            # K stages per slice at the least
+H100_SMS = 132
 
-def _vec_ok(t: torch.Tensor, inner: int) -> int:
-    """1 when 4-byte words along the contiguous axis are aligned loads."""
-    return int(inner % 4 == 0 and t.data_ptr() % 4 == 0)
+
+class Plan(NamedTuple):
+    """One launch: ``bm`` rows x ``BN`` columns per block, K in stages of
+    ``bk``, split into ``splits`` slices of ``kslice`` (a whole number of
+    stages; the last may be shorter); ``smem`` dynamic shared bytes."""
+    bm: int
+    bk: int
+    kslice: int
+    splits: int
+    grid: tuple
+    smem: int
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(m: int, k: int, n: int, p: int, packed: bool = False,
+         sms: int = H100_SMS) -> Plan:
+    """The launch of an [m, k] x [k, n] shift GEMM over ``p`` int8 planes
+    (``packed``: one uint8 store, read once for all ``p`` fields).
+
+    Rows: the smallest tile of ``ROW_TILES`` that holds ``m``; beyond 64
+    rows, tiles of 64 (each weight byte is read once per 64 rows).  Stage
+    depth: about ``STAGE_WEIGHT_BYTES`` of raw weight per stage, halved
+    (down to 32) while the output tiles times the stages cannot give each
+    of the card's resident blocks (``BLOCKS_PER_SM`` on each of ``sms``
+    SMs) ``MIN_SLICE_STAGES`` stages.  Split-K: where the output tiles are
+    fewer than those resident blocks, as many K slices of equal length (at
+    least ``MIN_SLICE_STAGES`` stages) as one wave of them holds."""
+    if min(m, k, n) < 0 or not 1 <= p <= 4:
+        raise ValueError(f"plan: m {m} k {k} n {n} p {p}")
+    bm = next((b for b in ROW_TILES if m <= b), ROW_TILES[-1])
+    tiles = math.ceil(m / bm) * math.ceil(n / BN)
+    slots = BLOCKS_PER_SM * sms     # one wave of resident blocks
+    w_tiles = 1 if packed else p
+    bk = max(32, min(128, STAGE_WEIGHT_BYTES // (w_tiles * BN) // 32 * 32))
+    while bk > 32 and tiles * math.ceil(k / bk) < slots * MIN_SLICE_STAGES:
+        bk //= 2
+    stages = math.ceil(k / bk)
+    per_slice = max(stages, 1)
+    if 0 < tiles < slots:   # as many slices as one wave of blocks holds
+        per_slice = max(MIN_SLICE_STAGES, math.ceil(stages / (slots // tiles)))
+    splits = max(1, math.ceil(stages / per_slice))
+    smem = STAGES * (w_tiles * bk * BN + bm * (bk + X_PAD))
+    return Plan(bm, bk, per_slice * bk, splits,
+                (math.ceil(n / BN), math.ceil(m / bm), splits), smem)
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _vec_ok(t: torch.Tensor, inner: int, align: int = 4) -> int:
+    """1 when ``align``-byte chunks along the contiguous axis are aligned
+    loads (the grouped kernels load 4-byte words, the shift GEMMs copy
+    16-byte chunks)."""
+    return int(inner % align == 0 and t.data_ptr() % align == 0)
+
+
+def _launch(name: str, counter: str, x: torch.Tensor, w: torch.Tensor, n: int,
+            p: int, packed: bool, args: tuple) -> torch.Tensor:
+    """Plans, allocates (zeroed when K is split), launches C entry ``name``
+    and counts the launch under ``counter``."""
+    m, k = x.shape
+    pl = plan(m, k, n, p, packed, _sm_count(x.device))
+    alloc = torch.zeros if pl.splits > 1 else torch.empty
+    out = alloc((m, n), dtype=torch.int32, device=x.device)
+    if m and n:
+        _build.launch(name, x.device, x, w, out, m, k, n, p, *args,
+                      _vec_ok(x, k, 16), _vec_ok(w, n, 16), pl.bm, pl.bk,
+                      pl.kslice, pl.smem)
+        _build.LAUNCHES[counter] += 1
+    return out
 
 
 def bitserial_matmul(x: torch.Tensor, planes: torch.Tensor,
@@ -38,15 +123,8 @@ def bitserial_matmul(x: torch.Tensor, planes: torch.Tensor,
     _build.check_cuda(x, "bitserial_matmul")
     _build.check_operands("bitserial_matmul", (x, torch.int8),
                           (planes, torch.int8))
-    m, k = x.shape
-    n = planes.shape[2]
-    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
-    if m and n:
-        s = list(shifts) + [0] * (4 - p)
-        _build.launch("bitserial_matmul_s8", x.device, x, planes, out, m, k,
-                      n, p, *s, _vec_ok(x, k), _vec_ok(planes, n))
-        _build.LAUNCHES["bitserial_matmul"] += 1
-    return out
+    return _launch("bitserial_matmul_s8", "bitserial_matmul", x, planes,
+                   planes.shape[2], p, False, tuple(shifts) + (0,) * (4 - p))
 
 
 def packed_bitserial_matmul(x: torch.Tensor, w_packed: torch.Tensor, *,
@@ -74,12 +152,6 @@ def packed_bitserial_matmul(x: torch.Tensor, w_packed: torch.Tensor, *,
     _build.check_cuda(x, "packed_bitserial_matmul")
     _build.check_operands("packed_bitserial_matmul", (x, torch.int8),
                           (w_packed, torch.uint8))
-    m, k = x.shape
-    n = w_packed.shape[1]
-    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
-    if m and n:
-        _build.launch("packed_bitserial_matmul_u8", x.device, x, w_packed, out,
-                      m, k, n, eff // 2, (w_bits - eff) // 2, int(signed),
-                      _vec_ok(x, k), _vec_ok(w_packed, n))
-        _build.LAUNCHES["packed_bitserial_matmul"] += 1
-    return out
+    return _launch("packed_bitserial_matmul_u8", "packed_bitserial_matmul",
+                   x, w_packed, w_packed.shape[1], eff // 2, True,
+                   ((w_bits - eff) // 2, int(signed)))

@@ -1,6 +1,6 @@
 // Plane-decomposed integer GEMM: out int32 [M, N] = sum_c (x @ plane_c) << s_c,
 // from int8 planes (bitserial_matmul_s8) or a byte-packed store
-// (packed_bitserial_matmul_u8).
+// (packed_bitserial_matmul_u8), on the int8 tensor-core core plane_mma.cuh.
 //
 // bitserial_matmul_s8 replaces the Pallas TPU kernel src/repro/kernels/
 // bitserial_matmul.py::bitserial_matmul (pallas_call at bitserial_matmul.py:84,
@@ -16,91 +16,45 @@
 // fields, field base/2 + c for plane c with base = w_bits - eff_bits, at shift
 // 2c; the top extracted field is signed for a signed store.
 //
-// Bound on an H100: memory at decode (M <= max_batch rows; the weight bytes,
-// P*K*N unpacked or K*N packed, are read once per 8*TM-row tile and dominate
-// the traffic), int8 operations at large prefill M.  The design (plane_gemm.cuh)
-// keeps the x tile and all P plane tiles of a K stage in shared memory, so
-// every weight byte read from device memory feeds all rows of the tile; the
-// packed source splits each byte into its fields on the way into shared
-// memory, so a packed read costs one byte per weight whatever P is.  A
-// small-M instantiation (8-row tiles) keeps decode from wasting work on empty
-// rows.  Known limits, left for later work: dp4a instead of tensor-core MMA,
-// no cp.async/TMA pipelining, no split-K for narrow N (k/v projections give
-// 16 blocks).
-#include "plane_gemm.cuh"
+// Bound on an H100 (3.35 TB/s): bytes at every serving shape (M <= 64 rows do
+// at most 128 int8 operations per weight byte, the card ~590).  At K = 4096
+// the P = 4 planes read 16 K N bytes, N = 1024 / 4096 / 12288 / 152064:
+// 0.005 / 0.020 / 0.060 / 0.744 ms; K = 12288, N = 4096: 0.060 ms.  The
+// packed store reads K N bytes at any P, a quarter of those.
+//
+// The earlier dp4a core (plane_gemm.cuh, still under grouped_matmul.cu) reached
+// 2.5-14 % of these bounds: products on the CUDA cores (dp4a, four MACs per
+// instruction), each K stage loaded then computed with nothing in flight, and
+// 16 (N = 1024) or 64 (N = 4096) blocks on 132 SMs.  plane_mma.cuh answers
+// each: int8 mma.sync, one pass per plane folded by its shift (1); operands
+// K-major by a register transpose of the N-contiguous store, which is kept as
+// the reference's (2); a four-slot cp.async ring (3); split-K over
+// blockIdx.z with atomicAdd into the zeroed output where the output tiles
+// are fewer than one wave of resident blocks (4); 16-, 32- or 64-row tiles
+// by M (5).
+// The plan (row tile, stage depth, K slice, shared bytes) comes from the
+// Python wrapper, bitserial_matmul.plan; a plan whose shared bytes differ
+// from the core's layout is refused (cudaErrorInvalidValue).
+#include "plane_mma.cuh"
 
-namespace {
-
-using namespace plane_gemm;
-
-template <int TM, class WSource>
-__global__ void __launch_bounds__(kThreads)
-bitserial_kernel(const int8_t* __restrict__ x, WSource wsrc, int32_t* __restrict__ out,
-                 int M, int K, int N, int P, int s0, int s1, int s2, int s3,
-                 bool vec_x) {
-  __shared__ Smem<TM> sm;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * (8 * TM);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int shifts[kMaxPlanes] = {s0, s1, s2, s3};
-  int coef[TM][kMaxPlanes];
-  int acc[TM][4];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int c = 0; c < kMaxPlanes; ++c) coef[i][c] = 1 << shifts[c];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-  }
-  accumulate<TM>(x, wsrc, M, K, N, P, m0, n0, vec_x, coef, acc, sm);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + 8 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (m < M && n < N) out[static_cast<size_t>(m) * N + n] = acc[i][j];
-    }
-  }
-}
-
-template <class WSource>
-int launch(const void* x, WSource wsrc, void* out, int M, int K, int N, int P,
-           const int (&s)[kMaxPlanes], int vec_x, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* xp = static_cast<const int8_t*>(x);
-  int32_t* op = static_cast<int32_t*>(out);
-  const dim3 block(kThreads);
-  if (M <= 8) {
-    const dim3 grid((N + kBN - 1) / kBN, (M + 7) / 8);
-    bitserial_kernel<1, WSource><<<grid, block, 0, st>>>(
-        xp, wsrc, op, M, K, N, P, s[0], s[1], s[2], s[3], vec_x != 0);
-  } else {
-    const dim3 grid((N + kBN - 1) / kBN, (M + 31) / 32);
-    bitserial_kernel<4, WSource><<<grid, block, 0, st>>>(
-        xp, wsrc, op, M, K, N, P, s[0], s[1], s[2], s[3], vec_x != 0);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-extern "C" int bitserial_matmul_s8(const void* x, const void* planes, void* out,
-                                   int M, int K, int N, int P, int s0, int s1,
-                                   int s2, int s3, int vec_x, int vec_w,
-                                   void* stream) {
-  const PlaneSource src{static_cast<const int8_t*>(planes), vec_w != 0};
-  const int s[kMaxPlanes] = {s0, s1, s2, s3};
-  return launch(x, src, out, M, K, N, P, s, vec_x, stream);
+extern "C" int bitserial_matmul_s8(const void* x, const void* planes, void* out, int M,
+                                   int K, int N, int P, int s0, int s1, int s2, int s3,
+                                   int vec_x, int vec_w, int bm, int bk, int kslice,
+                                   int smem, void* stream) {
+  const plane_mma::Weights wt{static_cast<const int8_t*>(planes), P,
+                              {1 << s0, 1 << s1, 1 << s2, 1 << s3}, 0, -1};
+  return plane_mma::launch<false>(x, wt, out, M, K, N, vec_x, vec_w, bm, bk, kslice,
+                                  smem, stream);
 }
 
 // P = eff_bits / 2 planes; plane c is byte field first_field + c at shift 2c;
 // the top one (c = P - 1) is signed when sign != 0.
 extern "C" int packed_bitserial_matmul_u8(const void* x, const void* packed, void* out,
                                           int M, int K, int N, int P, int first_field,
-                                          int sign, int vec_x, int vec_w,
-                                          void* stream) {
-  const PackedSource src{static_cast<const int8_t*>(packed), vec_w != 0, first_field, 1,
-                         sign != 0 ? P - 1 : -1};
-  const int s[kMaxPlanes] = {0, 2, 4, 6};
-  return launch(x, src, out, M, K, N, P, s, vec_x, stream);
+                                          int sign, int vec_x, int vec_w, int bm, int bk,
+                                          int kslice, int smem, void* stream) {
+  const plane_mma::Weights wt{static_cast<const int8_t*>(packed), P, {1, 4, 16, 64},
+                              first_field, sign != 0 ? P - 1 : -1};
+  return plane_mma::launch<true>(x, wt, out, M, K, N, vec_x, vec_w, bm, bk, kslice,
+                                 smem, stream);
 }

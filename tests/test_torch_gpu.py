@@ -58,7 +58,11 @@ def test_act_quant_kernels(gen, m, k):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("m,k,n", [(5, 4100, 1000), (8, 64, 64), (40, 37, 33)])
+@pytest.mark.parametrize("m,k,n", [
+    (5, 4100, 1000), (8, 64, 64), (40, 37, 33),
+    # Split-K (narrow N, deep K), a ragged row tile with ragged K and N, and
+    # one row against a wide weight.
+    (16, 4096, 1024), (17, 4100, 1000), (64, 12288, 4096), (1, 4096, 8192)])
 def test_gemm_kernels(gen, m, k, n):
     x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device="cuda",
                       generator=gen)
@@ -108,6 +112,33 @@ def test_gemm_kernels(gen, m, k, n):
                     x, wp, w_bits, eff, signed)), (w_bits, eff, signed)
 
 
+@pytest.mark.parametrize("m", [3, 40])
+def test_shift_gemms_take_rows_that_are_not_16_byte_aligned(gen, m):
+    """x and the store one byte past an aligned address: the kernels' masked
+    load path, at an aligned K and N that would otherwise copy 16 bytes."""
+    k, n = 4096, 1024
+    xbuf = torch.randint(-128, 128, (m * k + 1,), dtype=torch.int8,
+                         device="cuda", generator=gen)
+    x = xbuf[1:].view(m, k)
+    planes = decompose.decompose_superplanes(torch.randint(
+        -128, 128, (k, n), dtype=torch.int8, device="cuda",
+        generator=gen)).contiguous()
+    pbuf = torch.empty(planes.numel() + 1, dtype=torch.int8, device="cuda")
+    pbuf[1:] = planes.reshape(-1)
+    shifted = pbuf[1:].view(planes.shape)
+    sh = decompose.prefix_shifts(4)
+    got = _counted("bitserial_matmul",
+                   lambda: bsm.bitserial_matmul(x, shifted, sh))
+    assert torch.equal(got, ref.bitserial_matmul_ref(x, planes, sh))
+    packed = ops.pack_planes(planes.flip(0), 8)
+    qbuf = torch.empty(packed.numel() + 1, dtype=torch.uint8, device="cuda")
+    qbuf[1:] = packed.reshape(-1)
+    got = _counted("packed_bitserial_matmul",
+                   lambda: bsm.packed_bitserial_matmul(
+                       x, qbuf[1:].view(k, n), w_bits=8, eff_bits=6))
+    assert torch.equal(got, ref.packed_bitserial_matmul_ref(x, packed, 8, 6))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     x = torch.randint(0, 255, (4, 64), dtype=torch.uint8, device="cuda")
     planes = torch.zeros((1, 64, 8), dtype=torch.int8, device="cuda")
@@ -132,6 +163,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match="int32"):
         gmm.grouped_matmul(xi, packed, mult.to(torch.int64), packed=True)
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_shift_gemms_refuse_a_plan_off_the_core_layout(gen, monkeypatch,
+                                                       packed):
+    """The plan's shared bytes must equal plane_mma.cuh's layout (kStages
+    slots of weight tiles and a padded x tile): a plan that differs is
+    refused, not launched, and not counted."""
+    real = bsm.plan
+
+    def off(*args, **kwargs):
+        pl = real(*args, **kwargs)
+        return pl._replace(smem=pl.smem + 16)
+    monkeypatch.setattr(bsm, "plan", off)
+    x = torch.randint(-128, 128, (8, 256), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="failed"):
+        if packed:
+            bsm.packed_bitserial_matmul(x, torch.zeros(
+                (256, 256), dtype=torch.uint8, device="cuda"), w_bits=4)
+        else:
+            bsm.bitserial_matmul(x, torch.zeros(
+                (2, 256, 256), dtype=torch.int8, device="cuda"), (0, 2))
     assert _build.LAUNCHES == before
 
 
