@@ -7,10 +7,11 @@ Phases, in order (any failure exits non-zero and prints no result line):
 
 1. build    nvcc builds the six kernels from ``src/repro_torch/kernels/csrc``
             into ``build/kernels/``; prints the build seconds and the card,
-            and for every instantiation of kernels 3 and 5 (the
-            tensor-core core ``plane_mma.cuh``) its IMMA and LDGSTS/UTMALDG
-            counts in ``cuobjdump -sass`` and ptxas' spill bytes; fails if
-            one has no IMMA or no asynchronous copy.
+            and for every instantiation of the tensor-core core
+            ``plane_mma.cuh`` (kernels 3 and 5, and kernels 4 and 6 in
+            both layouts) its IMMA and LDGSTS/UTMALDG counts in
+            ``cuobjdump -sass`` and ptxas' spill bytes; fails if one has no
+            IMMA or no asynchronous copy.
 2. parity   each kernel against its plain PyTorch version at the serving
             shapes (M in {8, 64}; K=4096 -> N in {4096, 1024, 12288, 152064};
             K=12288 -> N=4096) and one ragged shape (M=5, K=4100, N=1000):
@@ -18,16 +19,23 @@ Phases, in order (any failure exits non-zero and prints no result line):
             {16, 17, 40} at the serving shapes (prefill buckets, a ragged
             row tile).  The packed GEMM runs every stored width
             2/4/6/8 at every even effective width, signed and unsigned; the
-            grouped GEMMs run both layouts with three tier groups.  This
-            phase's launches are the only ones of ``grouped_matmul``, which
-            no serving path runs.
+            grouped GEMMs run both layouts (the packed one signed and
+            unsigned) with three tier groups, and at M in {1, 3, 8, 16, 17,
+            40} every tier mix of ``_grouped_layouts`` (one-tier batches of
+            Pmax 1-4, two-tier batches of Pmax 2 and 3).  This phase's
+            launches are the only ones of ``grouped_matmul``, which no
+            serving path runs.
 3. mixed    serves full-width qwen3-8b (seeded random weights made on the
             card layer by layer, each layer's float weights freed once its
             superplane store is prepared) with tiers 8/8 4/4 2/2 through the
             ``cuda`` backend; counts every kernel launch of that run, then
             replays the same requests through the plain ``decomposed``
             backend on the same store, which must launch no kernel, and
-            requires identical token streams.
+            requires identical token streams.  In between, the same
+            requests are served again with one decode chunk of mixed tiers
+            traced by ``torch.profiler`` (CUDA activity): the device-busy
+            share of the chunk's wall time and the five device operations
+            that took the most time.
 4. packed   the same weights (same seed) and requests through
             ``ServeEngine(packed=True)``, which prepares the byte-packed
             superplane store itself (one uint8 per weight); its streams must
@@ -41,7 +49,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
             ``cuda`` engine's streams must equal the ``decomposed`` one's
             and the packed ``cuda`` engine's.
 6. times    median CUDA-event time of each kernel at its serving shapes,
-            with a cold L2 cache (as a decode step finds the weights),
+            with a cold L2 cache (as a decode step finds the weights) and
+            the call enqueued before the card reaches it (a spin first),
             beside its bound on this card, its plain version's time and,
             where one PyTorch call computes the same function, that call's.
 
@@ -119,21 +128,28 @@ def phase_build() -> dict:
     return {"build_seconds": secs, "card": card}
 
 
-# The shift GEMMs' instantiations: plane_mma::shift_gemm_kernel<BM, BK, kPacked>.
-SHIFT_GEMM_SYMBOL = re.compile(r"shift_gemm_kernelILi(\d+)ELi(\d+)ELb([01])E")
-SHIFT_GEMM_KERNEL = {"0": "bitserial_matmul", "1": "packed_bitserial_matmul"}
+# The core's instantiations, plane_mma::plane_gemm_kernel<BM, BK, kPacked,
+# kGrouped>: kernels 3 and 5, and kernels 4 and 6 (one kernel, with or
+# without the dequant epilogue) on either layout.
+CORE_SYMBOL = re.compile(
+    r"plane_gemm_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E")
+CORE_KERNEL = {("0", "0"): "bitserial_matmul",
+               ("1", "0"): "packed_bitserial_matmul",
+               ("0", "1"): "grouped_(dequant_)matmul",
+               ("1", "1"): "grouped_(dequant_)matmul packed"}
 
 
 def _instance(sym) -> str:
-    return f"{SHIFT_GEMM_KERNEL[sym.group(3)]}<BM={sym.group(1)},BK={sym.group(2)}>"
+    return (f"{CORE_KERNEL[(sym.group(3), sym.group(4))]}"
+            f"<BM={sym.group(1)},BK={sym.group(2)}>")
 
 
 def _sass_report(build) -> None:
     """Counts, in ``cuobjdump -sass`` of the built library, the int8
     tensor-core MMAs (IMMA) and asynchronous copies (LDGSTS = cp.async,
-    UTMALDG = TMA) of every instantiation of kernels 3 and 5, with ptxas'
-    spill bytes; fails if either kernel has an instantiation without IMMA
-    or without an asynchronous copy."""
+    UTMALDG = TMA) of every instantiation of the core (kernels 3-6), with
+    ptxas' spill bytes; fails if a kernel has no instantiation, or one
+    without IMMA or without an asynchronous copy."""
     tool = pathlib.Path(build._nvcc()).with_name("cuobjdump")
     res = subprocess.run([str(tool), "-sass", build.build_info["path"]],
                          capture_output=True, text=True, timeout=300)
@@ -144,7 +160,7 @@ def _sass_report(build) -> None:
     current = None
     for line in res.stdout.splitlines():
         if "Function :" in line:
-            sym = SHIFT_GEMM_SYMBOL.search(line)
+            sym = CORE_SYMBOL.search(line)
             current = None if sym is None else _instance(sym)
             if current is not None:
                 counts[current] = dict.fromkeys(ops, 0)
@@ -153,21 +169,21 @@ def _sass_report(build) -> None:
                 counts[current][op] += 1
     # ptxas -v: "Function properties for <symbol>" then the spill line.
     spills: dict = {}
-    log_text = build.build_info.get("ptxas", {}).get("bitserial_matmul.cu", "")
-    lines = log_text.splitlines()
-    for i, line in enumerate(lines):
-        sym = SHIFT_GEMM_SYMBOL.search(line)
-        if sym and "Function properties" in line and i + 1 < len(lines):
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                              r"loads", lines[i + 1])
-            if spill:
-                spills[_instance(sym)] = int(spill.group(1)) + \
-                    int(spill.group(2))
+    for log_text in build.build_info.get("ptxas", {}).values():
+        lines = log_text.splitlines()
+        for i, line in enumerate(lines):
+            sym = CORE_SYMBOL.search(line)
+            if sym and "Function properties" in line and i + 1 < len(lines):
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", lines[i + 1])
+                if spill:
+                    spills[_instance(sym)] = int(spill.group(1)) + \
+                        int(spill.group(2))
     for name in sorted(counts):
         spill = spills.get(name, "not available (library built earlier)")
         log(f"[build] sass {name}: " + ", ".join(
             f"{op} {counts[name][op]}" for op in ops) + f", spill bytes {spill}")
-    for kernel in SHIFT_GEMM_KERNEL.values():
+    for kernel in CORE_KERNEL.values():
         mine = {k: v for k, v in counts.items() if k.startswith(kernel + "<")}
         if not mine:
             raise AssertionError(f"{kernel}: no instantiation in the SASS")
@@ -198,18 +214,33 @@ def _mixed_layout(m: int):
     return ((a, 4), (b, 2), (m - a - b, 1))
 
 
-def _grouped_args(m: int, n: int, gen):
+def _grouped_layouts(m: int):
+    """Tier mixes of m rows, (rows, planes) per group: one-tier batches of
+    Pmax 4, 3, 2, 1; two tiers of Pmax 3 and 2 (from two rows); the
+    three-tier mix (from three rows)."""
+    out = [((m, p),) for p in (4, 3, 2, 1)]
+    if m >= 2:
+        a = (m + 1) // 2
+        out += [((a, 3), (m - a, 1)), ((a, 2), (m - a, 1))]
+    if m >= 3:
+        out.append(_mixed_layout(m))
+    return out
+
+
+def _grouped_args(layout, n: int, gen):
+    """mult, x_scale, w_scale (one row per group) and row_group of
+    ``layout``."""
     import numpy as np
     import torch
     from repro_torch.core import decompose
-    layout = _mixed_layout(m)
+    m = sum(r for r, _ in layout)
     mult = torch.from_numpy(decompose.prefix_multipliers(layout)).cuda()
     xs = torch.rand((m, 1), device="cuda", generator=gen) * 1e-2 + 1e-4
     base = torch.rand((1, n), device="cuda", generator=gen) * 1e-2 + 1e-5
-    ws = torch.cat([base, base * 16.0, base * 64.0]).contiguous()
-    rg = torch.from_numpy(np.repeat(np.arange(3, dtype=np.int32),
+    ws = torch.cat([base * f for f in (1.0, 16.0, 64.0)[:len(layout)]])
+    rg = torch.from_numpy(np.repeat(np.arange(len(layout), dtype=np.int32),
                                     [r for r, _ in layout])).cuda()
-    return mult, xs, ws, rg
+    return mult, xs, ws.contiguous(), rg
 
 
 def phase_parity() -> dict:
@@ -279,7 +310,7 @@ def phase_parity() -> dict:
                          ref.packed_bitserial_matmul_ref(x, wp, w_bits, eff,
                                                          signed))
             del wp
-        mult, xs, ws, rg = _grouped_args(m, n, gen)
+        mult, xs, ws, rg = _grouped_args(_mixed_layout(m), n, gen)
         hold("grouped_dequant_matmul",
              gmm.grouped_dequant_matmul(x, planes, mult, xs, ws, rg),
              ref.grouped_dequant_matmul_ref(x, planes, mult, xs, ws, rg))
@@ -320,6 +351,25 @@ def phase_parity() -> dict:
                                                  eff_bits=eff, signed=signed),
                      ref.packed_bitserial_matmul_ref(x, packed, 8, eff,
                                                      signed))
+        del x, planes, packed
+        sync()
+        torch.cuda.empty_cache()
+    # The grouped GEMMs at every decode batch kind, both layouts.
+    for m, k, n in [(m, k, n) for m in (1, 3, 8, 16, 17, 40)
+                    for k, n in GEMM_SHAPES]:
+        x, planes = _inputs(m, k, n, gen)
+        packed = ops.pack_planes(planes.flip(0), 8)
+        for layout in _grouped_layouts(m):
+            mult, xs, ws, rg = _grouped_args(layout, n, gen)
+            pre = planes[:mult.shape[1]]
+            for w, lay in ((pre, {}), (packed, dict(packed=True)),
+                           (packed, dict(packed=True, signed=False))):
+                hold("grouped_dequant_matmul",
+                     gmm.grouped_dequant_matmul(x, w, mult, xs, ws, rg, **lay),
+                     ref.grouped_dequant_matmul_ref(x, w, mult, xs, ws, rg,
+                                                    **lay))
+                hold("grouped_matmul", gmm.grouped_matmul(x, w, mult, **lay),
+                     ref.grouped_matmul_ref(x, w, mult, **lay))
         del x, planes, packed
         sync()
         torch.cuda.empty_cache()
@@ -449,12 +499,108 @@ def phase_mixed() -> dict:
                     unused=("packed_bitserial_matmul", "grouped_matmul"))
     if eng.stats.mixed_tier_chunks == 0:
         raise AssertionError("no decode chunk mixed tiers")
+    _profile_chunk(eng, reqs)
     del eng
     plain = uniform_schedule(tiers, backend="decomposed")
     ref_eng = engine_mod.ServeEngine(model, params, Runtime(
         policy=plain.policy_for(), schedule=plain), **kw)
     _check_plain("mixed", _serve(ref_eng, reqs, "mixed-plain"), res)
     return {**res["stats"], "streams": res["tokens"]}
+
+
+def _kernel_name(name: str, width: int = 110) -> str:
+    """A device operation's name without its trailing argument list."""
+    if name.endswith(")"):
+        depth = 0
+        for i in range(len(name) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(name[i], 0)
+            if depth == 0:
+                return name[:i][:width]
+    return name[:width]
+
+
+def _profile_chunk(eng, reqs) -> None:
+    """Submits ``reqs`` to the idle ``eng`` again and traces its first two
+    decode chunks (all slots filled, tiers mixed).  The first runs under
+    ``torch.profiler``, CUDA activity only: prints the device-busy share
+    of the chunk's wall time (the union of the device operations'
+    intervals over the host clock around the chunk, which ends in a host
+    copy) and the five device operations that took the most time.  The
+    second runs under ``cProfile``: prints its wall time and the host
+    functions with the most self time, and the port's functions with the
+    most cumulative time, per decode step.  Each tracer's own cost on the
+    host lengthens its chunk; the run is not counted anywhere else."""
+    import cProfile
+    import dataclasses
+    import pstats
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    inner = eng._decode_chunk
+    seen: dict = {}
+
+    def traced(rt, n_steps):
+        if "host" in seen:
+            return inner(rt, n_steps)
+        sync()
+        t0 = time.perf_counter()
+        if "prof" not in seen:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = inner(rt, n_steps)
+                seen["wall_ms"] = 1e3 * (time.perf_counter() - t0)
+            seen.update(prof=prof, steps=n_steps)
+            return out
+        host = cProfile.Profile()
+        out = host.runcall(inner, rt, n_steps)
+        seen.update(host=host, host_steps=n_steps,
+                    host_wall_ms=1e3 * (time.perf_counter() - t0))
+        return out
+    for r in reqs:                 # the same requests under fresh uids
+        eng.submit(dataclasses.replace(r, uid=r.uid + len(reqs)))
+    mixed = eng.stats.mixed_tier_chunks
+    eng._decode_chunk = traced
+    try:
+        eng.step()                 # admission, then the device-traced chunk
+        eng.step()                 # the host-traced chunk
+    finally:
+        del eng._decode_chunk
+    if eng.stats.mixed_tier_chunks != mixed + 2:
+        raise AssertionError("profile: a traced chunk did not mix tiers")
+    spans, by_name = [], {}
+    for e in seen["prof"].events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        name = _kernel_name(e.name)
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):     # the union of the device intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log("[mixed] profile of one decode chunk: " + json.dumps({
+        "steps": seen["steps"], "wall_ms": seen["wall_ms"],
+        "device_busy_ms": busy_us / 1e3 if spans else "not measured",
+        "device_busy_share": busy_us / 1e3 / seen["wall_ms"]
+        if spans else "not measured",
+        "top5_device_ms": [[n, us / 1e3] for n, us in top]}))
+    stats = pstats.Stats(seen["host"]).stats
+    steps = seen["host_steps"]
+
+    def where(func) -> str:
+        path, line, name = func
+        return f"{pathlib.Path(path).name}:{line}({name})"
+    own = sorted(stats.items(), key=lambda kv: -kv[1][2])[:10]
+    cum = sorted(((f, v) for f, v in stats.items() if "repro_torch" in f[0]),
+                 key=lambda kv: -kv[1][3])[:12]
+    log("[mixed] host profile of the next chunk (cProfile): " + json.dumps({
+        "steps": steps, "wall_ms": seen["host_wall_ms"],
+        "self_ms_per_step": [[where(f), v[1] / steps, 1e3 * v[2] / steps]
+                             for f, v in own],
+        "cum_ms_per_step": [[where(f), v[1] / steps, 1e3 * v[3] / steps]
+                            for f, v in cum]}))
 
 
 def _check_launches(label: str, launches: dict, used, unused) -> None:
@@ -573,6 +719,12 @@ def phase_fixed() -> dict:
 
 
 # --------------------------------------------------------------- phase 6
+# Device cycles the card spins before each timed call (about 1 ms at the
+# H100's clock), so that the host has enqueued the call before the start
+# event runs and the time is the device's alone, not the wrapper's.
+HEAD_START_CYCLES = 2_000_000
+
+
 def _time_ms(fn, flush, reps: int = 25, warm: int = 3) -> float:
     """Median CUDA-event ms of ``fn``, the L2 cache flushed before each
     timed call (``flush`` is a buffer larger than it): a decode step reads
@@ -583,6 +735,7 @@ def _time_ms(fn, flush, reps: int = 25, warm: int = 3) -> float:
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(HEAD_START_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -661,7 +814,7 @@ def phase_times() -> dict:
                         x, packed, 8, 2 * p),
                     m * k + k * n + 4 * m * n, 2.0 * m * k * n * p,
                     lib if p == 4 else None)
-            mult, xs, ws, rg = _grouped_args(m, n, gen)
+            mult, xs, ws, rg = _grouped_args(_mixed_layout(m), n, gen)
             scales = m * 16 + m * 4 + 3 * n * 4 + m * 4
             for label, w, lay in (("", planes, {}),
                                   (" packed", packed, {"packed": True})):

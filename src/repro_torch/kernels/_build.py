@@ -36,12 +36,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SIGNATURES: Dict[str, str] = {
     "act_quant_f32": "pppiiii",
     "act_quant_rows_f32": "ppppii",
-    "bitserial_matmul_s8": "pppiiiiiiiiiiiiii",
-    "packed_bitserial_matmul_u8": "pppiiiiiiiiiiii",
-    "grouped_matmul_s8": "ppppiiiiii",
-    "grouped_matmul_u8": "ppppiiiiiiii",
-    "grouped_dequant_matmul_s8": "pppppppiiiiii",
-    "grouped_dequant_matmul_u8": "pppppppiiiiiiii",
+    "bitserial_matmul_s8": "p" * 5 + "i" * 15,
+    "packed_bitserial_matmul_u8": "p" * 5 + "i" * 13,
+    "grouped_matmul_s8": "p" * 6 + "i" * 11,
+    "grouped_matmul_u8": "p" * 6 + "i" * 13,
+    "grouped_dequant_matmul_s8": "p" * 9 + "i" * 11,
+    "grouped_dequant_matmul_u8": "p" * 9 + "i" * 13,
 }
 
 # Launch counts per kernel: each wrapper adds one where it launches its

@@ -4,13 +4,15 @@ Replace ``repro.kernels.bitserial_matmul.bitserial_matmul`` and
 ``packed_bitserial_matmul`` (Pallas).  A CPU tensor takes the plain version
 (:mod:`repro_torch.kernels.ref`); a CUDA tensor launches the kernel or
 raises.  :func:`plan` chooses each launch's row tile, K stage depth and K
-slices (split-K); it is pure Python, so the CPU tests hold it.
+slices (split-K) for every GEMM on the core ``csrc/plane_mma.cuh``, these
+two and the grouped ones (:mod:`repro_torch.kernels.grouped_matmul`); it is
+pure Python, so the CPU tests hold it.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,20 +38,26 @@ H100_SMS = 132
 class Plan(NamedTuple):
     """One launch: ``bm`` rows x ``BN`` columns per block, K in stages of
     ``bk``, split into ``splits`` slices of ``kslice`` (a whole number of
-    stages; the last may be shorter); ``smem`` dynamic shared bytes."""
+    stages; the last may be shorter); ``smem`` dynamic shared bytes.  A
+    split launch sums its slices through ``workspace`` int32 (one ``bm`` x
+    ``BN`` tile per output tile and slice) under ``counters`` int32 (one
+    per output tile); both are 0 without a split."""
     bm: int
     bk: int
     kslice: int
     splits: int
     grid: tuple
     smem: int
+    workspace: int
+    counters: int
 
 
 @functools.lru_cache(maxsize=4096)
 def plan(m: int, k: int, n: int, p: int, packed: bool = False,
          sms: int = H100_SMS) -> Plan:
-    """The launch of an [m, k] x [k, n] shift GEMM over ``p`` int8 planes
-    (``packed``: one uint8 store, read once for all ``p`` fields).
+    """The launch of an [m, k] x [k, n] plane GEMM over ``p`` int8 planes
+    (``packed``: one uint8 store, read once for all ``p`` fields); the
+    same for the shift GEMMs and the grouped ones (``p`` = Pmax).
 
     Rows: the smallest tile of ``ROW_TILES`` that holds ``m``; beyond 64
     rows, tiles of 64 (each weight byte is read once per 64 rows).  Stage
@@ -62,7 +70,8 @@ def plan(m: int, k: int, n: int, p: int, packed: bool = False,
     if min(m, k, n) < 0 or not 1 <= p <= 4:
         raise ValueError(f"plan: m {m} k {k} n {n} p {p}")
     bm = next((b for b in ROW_TILES if m <= b), ROW_TILES[-1])
-    tiles = math.ceil(m / bm) * math.ceil(n / BN)
+    grid_n, grid_m = math.ceil(n / BN), math.ceil(m / bm)
+    tiles = grid_n * grid_m
     slots = BLOCKS_PER_SM * sms     # one wave of resident blocks
     w_tiles = 1 if packed else p
     bk = max(32, min(128, STAGE_WEIGHT_BYTES // (w_tiles * BN) // 32 * 32))
@@ -74,8 +83,10 @@ def plan(m: int, k: int, n: int, p: int, packed: bool = False,
         per_slice = max(MIN_SLICE_STAGES, math.ceil(stages / (slots // tiles)))
     splits = max(1, math.ceil(stages / per_slice))
     smem = STAGES * (w_tiles * bk * BN + bm * (bk + X_PAD))
-    return Plan(bm, bk, per_slice * bk, splits,
-                (math.ceil(n / BN), math.ceil(m / bm), splits), smem)
+    split = splits > 1
+    return Plan(bm, bk, per_slice * bk, splits, (grid_n, grid_m, splits),
+                smem, splits * tiles * bm * BN if split else 0,
+                tiles if split else 0)
 
 
 @functools.lru_cache(maxsize=16)
@@ -83,25 +94,49 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _vec_ok(t: torch.Tensor, inner: int, align: int = 4) -> int:
+def _vec_ok(t: torch.Tensor, inner: int, align: int = 16) -> int:
     """1 when ``align``-byte chunks along the contiguous axis are aligned
-    loads (the grouped kernels load 4-byte words, the shift GEMMs copy
-    16-byte chunks)."""
+    (the core copies 16-byte chunks with cp.async; otherwise it takes its
+    masked byte loads)."""
     return int(inner % align == 0 and t.data_ptr() % align == 0)
 
 
+# Split-K scratch per (device, stream): (counters, workspace), int32, grown
+# when a plan needs more.  The counters are zero between launches: the last
+# slice of each output tile resets its own.
+_SCRATCH: Dict[Tuple[torch.device, int],
+               Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _split_scratch(device: torch.device, pl: Plan) -> tuple:
+    """(counters, workspace) for a launch of ``pl`` on the current stream,
+    or (None, None) without a split."""
+    if pl.splits == 1:
+        return None, None
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    cnt, ws = _SCRATCH.get(key, (None, None))
+    if cnt is None or cnt.numel() < pl.counters:
+        cnt = torch.zeros(pl.counters, dtype=torch.int32, device=device)
+    if ws is None or ws.numel() < pl.workspace:
+        ws = torch.empty(pl.workspace, dtype=torch.int32, device=device)
+    _SCRATCH[key] = (cnt, ws)
+    return cnt, ws
+
+
 def _launch(name: str, counter: str, x: torch.Tensor, w: torch.Tensor, n: int,
-            p: int, packed: bool, args: tuple) -> torch.Tensor:
-    """Plans, allocates (zeroed when K is split), launches C entry ``name``
-    and counts the launch under ``counter``."""
+            p: int, packed: bool, args: tuple, operands: tuple = (),
+            out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Plans and launches C entry ``name``, counted under ``counter``:
+    ``(x, w, *operands, counters, workspace, out, M, K, N, p, *args,
+    vec_x, vec_w, bm, bk, kslice, smem, workspace ints)``."""
     m, k = x.shape
     pl = plan(m, k, n, p, packed, _sm_count(x.device))
-    alloc = torch.zeros if pl.splits > 1 else torch.empty
-    out = alloc((m, n), dtype=torch.int32, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m and n:
-        _build.launch(name, x.device, x, w, out, m, k, n, p, *args,
-                      _vec_ok(x, k, 16), _vec_ok(w, n, 16), pl.bm, pl.bk,
-                      pl.kslice, pl.smem)
+        _build.launch(name, x.device, x, w, *operands,
+                      *_split_scratch(x.device, pl), out, m, k, n, p, *args,
+                      _vec_ok(x, k), _vec_ok(w, n), pl.bm, pl.bk, pl.kslice,
+                      pl.smem, pl.workspace)
         _build.LAUNCHES[counter] += 1
     return out
 

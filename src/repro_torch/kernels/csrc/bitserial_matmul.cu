@@ -22,39 +22,44 @@
 // 0.005 / 0.020 / 0.060 / 0.744 ms; K = 12288, N = 4096: 0.060 ms.  The
 // packed store reads K N bytes at any P, a quarter of those.
 //
-// The earlier dp4a core (plane_gemm.cuh, still under grouped_matmul.cu) reached
+// The first port of these GEMMs (a dp4a core, since removed) reached
 // 2.5-14 % of these bounds: products on the CUDA cores (dp4a, four MACs per
 // instruction), each K stage loaded then computed with nothing in flight, and
 // 16 (N = 1024) or 64 (N = 4096) blocks on 132 SMs.  plane_mma.cuh answers
 // each: int8 mma.sync, one pass per plane folded by its shift (1); operands
 // K-major by a register transpose of the N-contiguous store, which is kept as
 // the reference's (2); a four-slot cp.async ring (3); split-K over
-// blockIdx.z with atomicAdd into the zeroed output where the output tiles
-// are fewer than one wave of resident blocks (4); 16-, 32- or 64-row tiles
-// by M (5).
-// The plan (row tile, stage depth, K slice, shared bytes) comes from the
-// Python wrapper, bitserial_matmul.plan; a plan whose shared bytes differ
-// from the core's layout is refused (cudaErrorInvalidValue).
+// blockIdx.z where the output tiles are fewer than one wave of resident
+// blocks, the slices summed by the last block of each output tile through a
+// workspace (4); 16-, 32- or 64-row tiles by M (5).  The grouped GEMMs
+// (grouped_matmul.cu) run on the same core.  The plan (row tile, stage
+// depth, K slice, shared bytes, workspace) comes from the Python wrapper,
+// bitserial_matmul.plan; a plan that differs from the core's layout is
+// refused (cudaErrorInvalidValue).
 #include "plane_mma.cuh"
 
-extern "C" int bitserial_matmul_s8(const void* x, const void* planes, void* out, int M,
-                                   int K, int N, int P, int s0, int s1, int s2, int s3,
-                                   int vec_x, int vec_w, int bm, int bk, int kslice,
-                                   int smem, void* stream) {
+extern "C" int bitserial_matmul_s8(const void* x, const void* planes, void* counters,
+                                   void* workspace, void* out, int M, int K, int N, int P,
+                                   int s0, int s1, int s2, int s3, int vec_x, int vec_w,
+                                   int bm, int bk, int kslice, int smem, int ws_ints,
+                                   void* stream) {
   const plane_mma::Weights wt{static_cast<const int8_t*>(planes), P,
-                              {1 << s0, 1 << s1, 1 << s2, 1 << s3}, 0, -1};
-  return plane_mma::launch<false>(x, wt, out, M, K, N, vec_x, vec_w, bm, bk, kslice,
-                                  smem, stream);
+                              {1 << s0, 1 << s1, 1 << s2, 1 << s3}, 0, -1, nullptr, false};
+  return plane_mma::launch<false, false>(x, wt, plane_mma::Epilogue{}, counters, workspace,
+                                         out, M, K, N, vec_x, vec_w, bm, bk, kslice, smem,
+                                         ws_ints, stream);
 }
 
 // P = eff_bits / 2 planes; plane c is byte field first_field + c at shift 2c;
 // the top one (c = P - 1) is signed when sign != 0.
-extern "C" int packed_bitserial_matmul_u8(const void* x, const void* packed, void* out,
-                                          int M, int K, int N, int P, int first_field,
-                                          int sign, int vec_x, int vec_w, int bm, int bk,
-                                          int kslice, int smem, void* stream) {
+extern "C" int packed_bitserial_matmul_u8(const void* x, const void* packed,
+                                          void* counters, void* workspace, void* out, int M,
+                                          int K, int N, int P, int first_field, int sign,
+                                          int vec_x, int vec_w, int bm, int bk, int kslice,
+                                          int smem, int ws_ints, void* stream) {
   const plane_mma::Weights wt{static_cast<const int8_t*>(packed), P, {1, 4, 16, 64},
-                              first_field, sign != 0 ? P - 1 : -1};
-  return plane_mma::launch<true>(x, wt, out, M, K, N, vec_x, vec_w, bm, bk, kslice,
-                                 smem, stream);
+                              first_field, sign != 0 ? P - 1 : -1, nullptr, false};
+  return plane_mma::launch<true, false>(x, wt, plane_mma::Epilogue{}, counters, workspace,
+                                        out, M, K, N, vec_x, vec_w, bm, bk, kslice, smem,
+                                        ws_ints, stream);
 }

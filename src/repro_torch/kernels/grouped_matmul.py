@@ -6,7 +6,8 @@ the weight as int8 MSB-first planes [Pmax, K, N] or, with ``packed``, as a
 uint8 [K, N] store whose MSB-first plane c is byte field
 ``store_planes - 1 - c``.  A CPU tensor takes the plain version
 (:mod:`repro_torch.kernels.ref`); a CUDA tensor launches the kernel or
-raises.
+raises.  The launch plan is the shift GEMMs' (``bitserial_matmul.plan``,
+with Pmax planes), since both run on the core ``csrc/plane_mma.cuh``.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 
 from repro_torch.core import decompose
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.bitserial_matmul import _vec_ok
+from repro_torch.kernels.bitserial_matmul import _launch
 
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
@@ -40,14 +41,12 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
     return n
 
 
-def _gemm_args(x, w, mult, packed, store_planes, signed):
-    """Weight dtype and the launch's trailing scalars (after M, K, N, P)."""
-    m, k = x.shape
-    n = w.shape[-1]
-    tail = ((store_planes, int(signed)) if packed else ()) + \
-        (_vec_ok(x, k), _vec_ok(w, n))
-    return (torch.uint8 if packed else torch.int8), (m, k, n,
-                                                     mult.shape[1]) + tail
+def _gemm_args(packed, store_planes, signed):
+    """Weight dtype and the launch's scalars between P and the alignment
+    flags."""
+    if packed:
+        return torch.uint8, (store_planes, int(signed))
+    return torch.int8, ()
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor, *,
@@ -65,15 +64,12 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor, *,
         return ref.grouped_matmul_ref(x, w, mult, packed=packed,
                                       store_planes=store_planes, signed=signed)
     _build.check_cuda(x, "grouped_matmul")
-    wdt, args = _gemm_args(x, w, mult, packed, store_planes, signed)
+    wdt, args = _gemm_args(packed, store_planes, signed)
     _build.check_operands("grouped_matmul", (x, torch.int8), (w, wdt),
                           (mult, torch.int32))
-    out = torch.empty((x.shape[0], n), dtype=torch.int32, device=x.device)
-    if x.shape[0] and n:
-        _build.launch("grouped_matmul_u8" if packed else "grouped_matmul_s8",
-                      x.device, x, w, mult, out, *args)
-        _build.LAUNCHES["grouped_matmul"] += 1
-    return out
+    return _launch("grouped_matmul_u8" if packed else "grouped_matmul_s8",
+                   "grouped_matmul", x, w, n, mult.shape[1], packed, args,
+                   operands=(mult,))
 
 
 def grouped_dequant_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -103,7 +99,7 @@ def grouped_dequant_matmul(x: torch.Tensor, w: torch.Tensor,
             x, w, mult, x_scale, w_scale, row_group, out_dtype, packed=packed,
             store_planes=store_planes, signed=signed)
     _build.check_cuda(x, "grouped_dequant_matmul")
-    wdt, args = _gemm_args(x, w, mult, packed, store_planes, signed)
+    wdt, args = _gemm_args(packed, store_planes, signed)
     _build.check_operands("grouped_dequant_matmul", (x, torch.int8),
                           (w, wdt), (mult, torch.int32),
                           (x_scale, torch.float32), (w_scale, torch.float32),
@@ -111,10 +107,8 @@ def grouped_dequant_matmul(x: torch.Tensor, w: torch.Tensor,
     if out_dtype != torch.bfloat16:
         raise ValueError(f"grouped_dequant_matmul: the kernel writes bf16, "
                          f"asked for {out_dtype}")
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    if m and n:
-        _build.launch("grouped_dequant_matmul_u8" if packed
-                      else "grouped_dequant_matmul_s8", x.device, x, w, mult,
-                      x_scale, w_scale, row_group, out, *args)
-        _build.LAUNCHES["grouped_dequant_matmul"] += 1
-    return out
+    return _launch("grouped_dequant_matmul_u8" if packed
+                   else "grouped_dequant_matmul_s8", "grouped_dequant_matmul",
+                   x, w, n, mult.shape[1], packed, args,
+                   operands=(mult, x_scale, w_scale, row_group),
+                   out_dtype=torch.bfloat16)

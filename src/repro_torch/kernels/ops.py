@@ -61,6 +61,10 @@ class QuantizedWeight:
     signed: bool = True
     packed: Optional[torch.Tensor] = None
     msb_first: bool = False
+    # group_scales' tables, made once per tuple of widths (not a field of
+    # the artifact: neither compared nor copied by dataclasses.replace).
+    _group_scales: Dict[Tuple[int, ...], torch.Tensor] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def kn(self) -> Tuple[int, int]:
@@ -86,6 +90,19 @@ class QuantizedWeight:
     def eff_scale(self, eff_bits: int) -> torch.Tensor:
         """Per-channel scale of the ``eff_bits``-truncated weight."""
         return quant.nested_scale(self.scale, self.w_bits, eff_bits)
+
+    def group_scales(self, eff_list: Tuple[int, ...]) -> torch.Tensor:
+        """f32 [G, N]: one effective per-channel scale row per group width
+        (an exact power-of-two multiple of the stored scale), made at the
+        first call for ``eff_list`` and kept, so a decode step makes none."""
+        rows = self._group_scales.get(eff_list)
+        if rows is None:
+            n = self.kn[1]
+            rows = torch.cat([
+                (self.eff_scale(eff) if eff != self.w_bits else self.scale)
+                .to(torch.float32).reshape(1, n) for eff in eff_list])
+            self._group_scales[eff_list] = rows
+        return rows
 
 
 def prepare_weight(w: torch.Tensor, prec: LayerPrecision,
@@ -304,26 +321,22 @@ def _quantize_activations_rows(x: torch.Tensor, row_groups: RowGroups,
                                perm: Optional[torch.Tensor], *,
                                plain: bool = False
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mixed-width per-row activation quantization (signed) of the full
-    UN-permuted batch in one pass — each row at its own ``a_bits``, carried
-    by a per-row f32 qmax — then codes and scales gathered by ``perm``."""
+    """Mixed-width per-row activation quantization (signed) in one pass:
+    the batch's rows gathered by ``perm`` into group order first, then
+    each row quantized at its own ``a_bits``, carried by a per-row f32
+    qmax.  Each row's codes and scale depend on that row alone, so they
+    equal quantizing the un-permuted batch and gathering the results."""
     lead, k = x.shape[:-1], x.shape[-1]
+    if perm is not None:
+        x = x.index_select(0, perm)
     qmax_sorted = _qmax_column(tuple((rows, g.a_bits) for rows, g in
                                      row_groups), x.device)
-    if perm is not None:
-        qmax_rows = qmax_sorted.index_select(0, torch.argsort(perm))
-    else:
-        qmax_rows = qmax_sorted
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    qmax_full = qmax_rows.reshape(shape).expand(*lead, 1).reshape(-1, 1)
+    qmax_full = qmax_sorted.reshape(shape).expand(*lead, 1).reshape(-1, 1)
     fn = ref.act_quant_rows_ref if plain else act_quant_kernel.act_quant_rows
     q, s = fn(x.to(torch.float32).reshape(-1, k).contiguous(),
               qmax_full.contiguous())
-    qr, sr = q.reshape(*lead, k), s.reshape(*lead, 1)
-    if perm is not None:
-        qr = qr.index_select(0, perm)
-        sr = sr.index_select(0, perm)
-    return qr, sr
+    return q.reshape(*lead, k), s.reshape(*lead, 1)
 
 
 def quantize_activations_grouped(
@@ -361,9 +374,9 @@ def fused_decode_linear(x: torch.Tensor, qw: QuantizedWeight,
                         out_dtype: Optional[torch.dtype] = None
                         ) -> torch.Tensor:
     """The fused mixed-tier decode hot path, in two launches: ONE
-    activation quantization over the full un-permuted batch, then ONE
-    group-switching plane-prefix GEMM with both scales applied in its
-    epilogue.  Returns results in PERMUTED (group-sorted) order."""
+    activation quantization over the whole batch, then ONE group-switching
+    plane-prefix GEMM with both scales applied in its epilogue.  Returns
+    results in PERMUTED (group-sorted) order."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     backends = tuple(dict.fromkeys(g.backend for _, g in row_groups))
     if len(backends) != 1 or backends[0] not in INTEGER_BACKENDS:
@@ -382,10 +395,9 @@ def fused_decode_linear(x: torch.Tensor, qw: QuantizedWeight,
                          for (rows, _), p in zip(row_groups, counts))
     mult, row_group = _group_tables(plane_groups, x.device)
     pmax = int(mult.shape[1])
-    # One effective per-channel scale row per group (an exact power-of-two
-    # multiple of the stored scale); row_group names each flat row's group.
-    ws = torch.cat([(qw.eff_scale(eff) if eff != qw.w_bits else qw.scale)
-                    .to(torch.float32).reshape(1, n) for eff in eff_list])
+    # One effective per-channel scale row per group; row_group names each
+    # flat row's group.
+    ws = qw.group_scales(eff_list)
     x2 = x_q.reshape(-1, k).contiguous()
     s2 = x_s.reshape(-1, 1).contiguous()
     if backends[0] == "decomposed":       # unpacks a packed store
@@ -394,7 +406,7 @@ def fused_decode_linear(x: torch.Tensor, qw: QuantizedWeight,
                                              out_dtype)
     else:
         out = gmm.grouped_dequant_matmul(x2, _msb_prefix(qw, pmax), mult, s2,
-                                         ws.contiguous(), row_group,
+                                         ws, row_group,
                                          out_dtype=out_dtype,
                                          **_store_args(qw))
     return out.reshape(*lead, n)

@@ -15,6 +15,7 @@ computes silu in f32 before casting to bf16.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -84,6 +85,7 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
     return {"w": (u * (2.0 * scale) - scale).to(dtype)}
 
 
+@functools.lru_cache(maxsize=256)
 def _serve_backend(prec: LayerPrecision) -> LayerPrecision:
     """Prepared weights only run on the integer serving backends."""
     return prec.with_backend(prec.backend if prec.backend in INTEGER_BACKENDS

@@ -191,6 +191,143 @@ def test_shift_gemms_refuse_a_plan_off_the_core_layout(gen, monkeypatch,
     assert _build.LAUNCHES == before
 
 
+def _grouped_case(gen, m, k, n, layout, offset=0):
+    """x, MSB-first planes, their packed store, and the grouped tables of
+    ``layout`` ((rows, planes) per tier group): mult, x_scale, w_scale (one
+    row per group) and row_group.  ``offset`` > 0 puts x and both stores
+    that many bytes past an aligned address (the masked load path)."""
+    def shifted(t):
+        if not offset:
+            return t
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device="cuda")
+        buf[offset:] = t.reshape(-1)
+        return buf[offset:].view(t.shape)
+    x = shifted(torch.randint(-128, 128, (m, k), dtype=torch.int8,
+                              device="cuda", generator=gen))
+    full = decompose.decompose_superplanes(torch.randint(
+        -128, 128, (k, n), dtype=torch.int8, device="cuda", generator=gen))
+    pmax = max(p for _, p in layout)
+    planes = shifted(full[:pmax].contiguous())
+    packed = shifted(ops.pack_planes(full.flip(0), 8))
+    mult = torch.from_numpy(decompose.prefix_multipliers(layout)).cuda()
+    xs = torch.rand((m, 1), device="cuda", generator=gen) * 1e-2 + 1e-4
+    ws = torch.rand((len(layout), n), device="cuda", generator=gen) * 1e-2
+    rg = torch.from_numpy(np.repeat(np.arange(len(layout), dtype=np.int32),
+                                    [r for r, _ in layout])).cuda()
+    return x, planes, packed, mult, xs, ws, rg
+
+
+def _hold_grouped(x, planes, packed, mult, xs, ws, rg):
+    """Kernels 4 and 6 on the int8 prefix and on the packed store (signed
+    and unsigned), each bit-equal to its plain version and counted once."""
+    cases = [(planes, {})] + [(packed, dict(packed=True, signed=sg))
+                              for sg in (True, False)]
+    for w, lay in cases:
+        got = _counted("grouped_dequant_matmul",
+                       lambda: gmm.grouped_dequant_matmul(x, w, mult, xs, ws,
+                                                          rg, **lay))
+        want = ref.grouped_dequant_matmul_ref(x, w, mult, xs, ws, rg, **lay)
+        assert torch.equal(got, want), lay
+        got = _counted("grouped_matmul",
+                       lambda: gmm.grouped_matmul(x, w, mult, **lay))
+        assert torch.equal(got, ref.grouped_matmul_ref(x, w, mult, **lay)), \
+            lay
+
+
+def _layouts(m, pmax):
+    """One-tier batches of ``pmax`` planes and, with two or more rows, the
+    rows split between ``pmax`` planes and fewer."""
+    out = [((m, pmax),)]
+    if m >= 2:
+        a = (m + 1) // 2
+        out.append(((a, pmax), (m - a, max(1, pmax - 2))))
+    if m >= 3 and pmax >= 3:
+        a = m // 3
+        out.append(((a, pmax), (a, 2), (m - 2 * a, 1)))
+    return out
+
+
+@pytest.mark.parametrize("pmax", [1, 2, 3, 4])
+@pytest.mark.parametrize("m", [1, 3, 8, 17, 40])
+def test_grouped_kernels_at_decode_rows(gen, m, pmax):
+    """Kernels 4 and 6 at every decode batch kind: one tier or several,
+    Pmax 1-4, both layouts, at a split (K = 4096, N = 1024) and a wide
+    (K = 512, N = 12288) shape."""
+    for k, n in ((4096, 1024), (512, 12288)):
+        for layout in _layouts(m, pmax):
+            _hold_grouped(*_grouped_case(gen, m, k, n, layout))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("m", [3, 8, 17])
+def test_grouped_kernels_ragged_and_unaligned(gen, m, offset):
+    """Ragged K and N (4100 x 1000: no 16-byte chunks, a ragged column
+    tile, a short last K slice), and rows one byte past an aligned address
+    at an aligned shape, where the kernels take their masked loads."""
+    k, n = (4100, 1000) if offset == 0 else (4096, 1024)
+    a = (m + 2) // 3
+    b = (m - a + 1) // 2
+    layout = ((a, 4), (b, 2), (m - a - b, 1))
+    _hold_grouped(*_grouped_case(gen, m, k, n, layout, offset))
+
+
+def test_split_counters_reset_between_launches(gen):
+    """Back-to-back split launches of all four GEMMs, at different shapes,
+    on one stream share the split-K counters and workspace: a counter left
+    non-zero, or a slice read from another launch, would show as a wrong
+    result."""
+    shapes = [(8, 4096, 1024), (3, 12288, 4096), (8, 4096, 1024),
+              (17, 4096, 4096), (1, 256, 640), (40, 4096, 1024)]
+    calls = []
+    for m, k, n in shapes:
+        assert bsm.plan(m, k, n, 4).splits > 1, (m, k, n)
+        x, planes, packed, mult, xs, ws, rg = _grouped_case(
+            gen, m, k, n, ((m, 4),))
+        sh = decompose.prefix_shifts(4)
+        calls += [
+            (lambda a=(x, planes, mult, xs, ws, rg):
+             gmm.grouped_dequant_matmul(*a),
+             ref.grouped_dequant_matmul_ref(x, planes, mult, xs, ws, rg)),
+            (lambda a=(x, packed, mult): gmm.grouped_matmul(*a, packed=True),
+             ref.grouped_matmul_ref(x, packed, mult, packed=True)),
+            (lambda a=(x, planes, sh): bsm.bitserial_matmul(*a),
+             ref.bitserial_matmul_ref(x, planes, sh)),
+            (lambda a=(x, packed): bsm.packed_bitserial_matmul(*a, w_bits=8),
+             ref.packed_bitserial_matmul_ref(x, packed, 8, 8))]
+    for _ in range(3):                 # no synchronisation between launches
+        gots = [fn() for fn, _ in calls]
+        torch.cuda.synchronize()
+        for got, (_, want) in zip(gots, calls):
+            assert torch.equal(got, want)
+    key = (calls[0][1].device, torch.cuda.current_stream().cuda_stream)
+    counters, _ = bsm._SCRATCH[key]
+    assert not counters.any()          # every last slice reset its counter
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("field", ["smem", "workspace"])
+def test_grouped_kernels_refuse_a_plan_off_the_core_layout(gen, monkeypatch,
+                                                           packed, field):
+    """A plan whose shared bytes, or (split launch) workspace, differ from
+    plane_mma.cuh's layout is refused, not launched, and not counted."""
+    real = bsm.plan
+
+    def off(*args, **kwargs):
+        pl = real(*args, **kwargs)
+        return pl._replace(**{field: getattr(pl, field) + 16})
+    x, planes, store, mult, xs, ws, rg = _grouped_case(gen, 8, 4096, 1024,
+                                                       ((8, 4),))
+    assert real(8, 4096, 1024, 4, packed).splits > 1
+    w, lay = (store, {"packed": True}) if packed else (planes, {})
+    monkeypatch.setattr(bsm, "plan", off)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="failed"):
+        gmm.grouped_dequant_matmul(x, w, mult, xs, ws, rg, **lay)
+    with pytest.raises(RuntimeError, match="failed"):
+        gmm.grouped_matmul(x, w, mult, **lay)
+    assert _build.LAUNCHES == before
+
+
 def _engine_requests(tiers):
     rng = np.random.default_rng(0)
     return [Request(uid=i, prompt=rng.integers(0, 512, size=5 + i)

@@ -1,9 +1,11 @@
-"""The launch plan of the shift GEMMs (``bitserial_matmul.plan``): pure
-Python, held here on the CPU.  The CUDA kernel (``csrc/plane_mma.cuh``)
-takes the plan as given, so these are the checks that its K slices cover K
-exactly, that narrow GEMMs are split to fill the card, and that every
-launch fits the shared memory of one H100 block (the kernel refuses a
-request that differs from its own layout's)."""
+"""The launch plan of the plane GEMMs (``bitserial_matmul.plan``, for the
+shift GEMMs and the grouped ones alike): pure Python, held here on the CPU.
+The CUDA kernel (``csrc/plane_mma.cuh``) takes the plan as given, so these
+are the checks that its K slices cover K exactly, that narrow GEMMs are
+split to fill the card, that every launch fits the shared memory of one
+H100 block, and that a split names the workspace and counters its slices
+are summed through (the kernel refuses a request that differs from its
+own layout's)."""
 import math
 
 import pytest
@@ -55,7 +57,7 @@ def test_grid_reaches_the_wave_target(m, k, n, p, packed):
     assert pl.bm >= m and pl.grid[1] == 1     # one row tile up to 64 rows
     assert tiles * pl.splits >= bsm.H100_SMS
     if tiles >= slots:
-        assert pl.splits == 1                 # wide N: no split, no atomics
+        assert pl.splits == 1                 # wide N: no split, no scratch
     else:                                     # narrow N or deep K: split-K
         assert tiles * pl.splits <= slots
         assert pl.kslice // pl.bk >= bsm.MIN_SLICE_STAGES
@@ -127,3 +129,42 @@ def test_alignment_flags():
     assert bsm._vec_ok(x, 100, 16) == 0 and bsm._vec_ok(x, 100, 4) == \
         int(x.data_ptr() % 4 == 0)
     assert bsm._vec_ok(x.view(-1)[1:], 64, 16) == 0
+
+
+# The grouped GEMMs' decode batches (max_batch 8, and the kernel-level API's
+# larger row counts) at every plane count of the MSB-first prefix.
+GROUPED_M = tuple(range(1, 9)) + (16, 17, 40, 64)
+GROUPED_LAYOUTS = [(p, packed) for p in (1, 2, 3, 4) for packed in
+                   (False, True)]
+
+
+@pytest.mark.parametrize("p,packed", GROUPED_LAYOUTS)
+@pytest.mark.parametrize("k,n", SERVING_KN)
+@pytest.mark.parametrize("m", GROUPED_M)
+def test_grouped_decode_plans(m, k, n, p, packed):
+    """At the grouped GEMMs' decode shapes the plan covers K once in whole
+    stages, fits two blocks per SM, and a split names exactly its scratch:
+    one ``bm`` x ``BN`` int32 tile per output tile and K slice
+    (plane_mma::workspace_ints) and one counter per output tile; an
+    unsplit launch needs none."""
+    pl = bsm.plan(m, k, n, p, packed)
+    sl = _slices(pl, k)
+    assert sl[0][0] == 0 and sl[-1][1] == k
+    assert all(b == c for (_, b), (c, _) in zip(sl, sl[1:]))
+    assert all((b - a) % pl.bk == 0 for a, b in sl[:-1])
+    assert all(b > a for a, b in sl)
+    w_tiles = 1 if packed else p
+    assert pl.smem == bsm.STAGES * (w_tiles * pl.bk * bsm.BN +
+                                    pl.bm * (pl.bk + bsm.X_PAD))
+    assert bsm.BLOCKS_PER_SM * (pl.smem + 1024) <= 228 * 1024
+    tiles = pl.grid[0] * pl.grid[1]
+    if pl.splits > 1:
+        assert pl.counters == tiles
+        assert pl.workspace == pl.splits * tiles * pl.bm * bsm.BN
+        # Every output row and column has its place in a slice's tile.
+        assert pl.grid[1] * pl.bm >= m and pl.grid[0] * bsm.BN >= n
+    else:
+        assert pl.counters == pl.workspace == 0
+    # The scratch stays small: a split never exceeds one wave of blocks.
+    assert pl.workspace * 4 <= bsm.BLOCKS_PER_SM * bsm.H100_SMS * 64 * \
+        bsm.BN * 4
