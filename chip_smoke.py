@@ -11,11 +11,20 @@ Phases, in order (any failure exits non-zero and prints no result line):
             ``plane_mma.cuh`` (kernels 3 and 5, and kernels 4 and 6 in
             both layouts) its IMMA and LDGSTS/UTMALDG counts in
             ``cuobjdump -sass`` and ptxas' spill bytes; fails if one has no
-            IMMA or no asynchronous copy.
-2. parity   each kernel against its plain PyTorch version at the serving
-            shapes (M in {8, 64}; K=4096 -> N in {4096, 1024, 12288, 152064};
-            K=12288 -> N=4096) and one ragged shape (M=5, K=4100, N=1000):
-            bit-equal, tolerance 0.  Kernels 3 and 5 also run M in
+            IMMA or no asynchronous copy.  For the register-resident
+            instantiations of kernels 1 and 2, their 16-byte loads and
+            local-memory accesses; fails unless each thread reads its part
+            of the row with one 16-byte load per vector and no local memory.
+2. parity   each kernel against its plain PyTorch version, bit-equal,
+            tolerance 0.  Kernels 1 and 2: bf16 and f32 input, without and
+            with a row gather (a shuffle with a repeated row), M in {1, 5,
+            8, 64}, K in {96, 4096, 4100, 12288}, widths 2-8 signed and 8
+            unsigned (kernel 1) and per-row qmax 127/7/1 (kernel 2), with
+            zero rows and rows on .5 boundaries after the divide, and two
+            views (rows apart, a misaligned base).  The GEMMs at the
+            serving shapes (M in {8, 64}; K=4096 -> N in {4096, 1024,
+            12288, 152064}; K=12288 -> N=4096) and one ragged shape (M=5,
+            K=4100, N=1000).  Kernels 3 and 5 also run M in
             {16, 17, 40} at the serving shapes (prefill buckets, a ragged
             row tile).  The packed GEMM runs every stored width
             2/4/6/8 at every even effective width, signed and unsigned; the
@@ -34,8 +43,10 @@ Phases, in order (any failure exits non-zero and prints no result line):
             requires identical token streams.  In between, the same
             requests are served again with one decode chunk of mixed tiers
             traced by ``torch.profiler`` (CUDA activity): the device-busy
-            share of the chunk's wall time and the five device operations
-            that took the most time.
+            share of the chunk's wall time, the device operations per step
+            and the five that took the most time; the next chunk under
+            ``cProfile``, with the calls of ``Tensor.index_select`` and
+            ``Tensor.to`` per step.
 4. packed   the same weights (same seed) and requests through
             ``ServeEngine(packed=True)``, which prepares the byte-packed
             superplane store itself (one uint8 per weight); its streams must
@@ -52,7 +63,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
             with a cold L2 cache (as a decode step finds the weights) and
             the call enqueued before the card reaches it (a spin first),
             beside its bound on this card, its plain version's time and,
-            where one PyTorch call computes the same function, that call's.
+            where one PyTorch call computes the same function, that call's;
+            and an empty kernel's time, the launch floor.
 
 The script takes no arguments.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the one before it the card's name and
@@ -155,6 +167,7 @@ def _sass_report(build) -> None:
                          capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         raise RuntimeError(f"cuobjdump failed: {res.stderr.strip()}")
+    _act_quant_sass(res.stdout)
     ops = ("IMMA", "LDGSTS", "UTMALDG")
     counts: dict = {}
     current = None
@@ -193,6 +206,44 @@ def _sass_report(build) -> None:
             if c["LDGSTS"] + c["UTMALDG"] == 0:
                 raise AssertionError(f"{name}: no asynchronous copy in its "
                                      "SASS")
+
+
+# Kernels 1 and 2's register-resident instantiations,
+# act_quant_vec_kernel<In, QT, K, kPer>: x's type, int8 (a) or uint8 (h),
+# K, and the 16-byte loads a thread.
+AQ_SYMBOL = re.compile(
+    r"act_quant_vec_kernelI\w*?(Bf16|F32)E([ah])Li(\d+)ELi(\d+)E")
+
+
+def _act_quant_sass(sass: str) -> None:
+    """Counts, in each register-resident instantiation of kernels 1 and 2,
+    the 16-byte global loads and the local-memory accesses; fails unless
+    every x dtype, code type and serving K has one, and each reads its
+    row with kPer 16-byte loads a thread and touches no local memory (the
+    row stays in registers)."""
+    counts: dict = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            sym = AQ_SYMBOL.search(line)
+            current = None if sym is None else sym.groups()
+            if current is not None:
+                counts[current] = {"LDG.128": 0, "LDL/STL": 0}
+        elif current is not None:
+            counts[current]["LDG.128"] += len(re.findall(r"\bLDG\.E\.128",
+                                                         line))
+            counts[current]["LDL/STL"] += len(re.findall(r"\b(?:LDL|STL)\b",
+                                                         line))
+    if len(counts) != 8:
+        raise AssertionError(f"act_quant.cu: {len(counts)} register-resident "
+                             "instantiations in the SASS, expected 8 (bf16 "
+                             "and f32, int8 and uint8, K 4096 and 12288)")
+    for (dt, qt, k, per), c in sorted(counts.items()):
+        log(f"[build] sass act_quant_vec<{dt}, {'int8' if qt == 'a' else 'uint8'}"
+            f", K={k}, kPer={per}>: " + json.dumps(c))
+        if c["LDG.128"] != int(per) or c["LDL/STL"]:
+            raise AssertionError(f"act_quant_vec<{dt}, K={k}>: expected "
+                                 f"{per} 16-byte loads and no local memory")
 
 
 # --------------------------------------------------------------- phase 2
@@ -243,6 +294,64 @@ def _grouped_args(layout, n: int, gen):
     return mult, xs, ws.contiguous(), rg
 
 
+# Kernel 1's widths in phase 2 (2-8 bits signed, 8 unsigned) and kernel
+# 2's per-row qmax, cycled over the rows.
+AQ_WIDTHS = tuple((b, True) for b in range(2, 9)) + ((8, False),)
+ROWS_QMAX = (127.0, 7.0, 1.0)
+
+
+def _act_rows(m: int, k: int, qmaxes, signed: bool, gen):
+    """f32 [m, k]: normal rows (x3), but every row 4j + 1 holds values
+    that land exactly on a .5 boundary after the divide when quantized at
+    its ``qmaxes[row % len]`` (amax = qmax / 8, so scale = 1/8 and
+    x / scale = n + 1/2), and every row 4j + 3 is zero (scale =
+    1e-8 * (1/qmax))."""
+    import torch
+    x = torch.randn((m, k), device="cuda", generator=gen) * 3.0
+    for r in range(1, m, 4):
+        q = qmaxes[r % len(qmaxes)]
+        n = torch.randint(-int(q) if signed else 0, int(q), (k,),
+                          device="cuda", generator=gen)
+        x[r] = (n.float() + 0.5) / 8.0
+        x[r, 0] = (-q if signed else q) / 8.0
+    x[3::4] = 0.0
+    return x
+
+
+def _act_quant_cases(gen):
+    """Kernels 1 and 2's parity inputs: yields (x, perm), ``x`` mapping
+    each of kernel 1's widths (bits, signed) and "rows" (kernel 2) to its
+    input.  M in {1, 5, 8, 64}, K in {96, 4096, 4100, 12288}, bf16 and f32,
+    without and with ``perm`` (a shuffle with a repeated row; int32 for
+    bf16, int64 for f32); then at K = 4096 and 12288, M = 8, two views:
+    rows 8 elements apart, and a base one element past a 16-byte
+    boundary (the generic path)."""
+    import torch
+
+    def inputs(m, k, dtype, view=lambda t: t):
+        x = {(b, s): _act_rows(m, k, [float((1 << (b - 1)) - 1 if s
+                                            else (1 << b) - 1)], s, gen)
+             for b, s in AQ_WIDTHS}
+        x["rows"] = _act_rows(m, k, ROWS_QMAX, True, gen)
+        return {key: view(t.to(dtype)) for key, t in x.items()}
+
+    for k in (96, 4096, 4100, 12288):
+        for m in (1, 5, 8, 64):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = inputs(m, k, dtype)
+                yield x, None
+                perm = torch.randperm(m, device="cuda", generator=gen)
+                perm[-1] = perm[0]
+                yield x, perm.to(torch.int32 if dtype == torch.bfloat16
+                                 else torch.int64)
+    for k in (4096, 12288):
+        for dtype in (torch.float32, torch.bfloat16):
+            yield inputs(8, k, dtype, lambda t: torch.cat(
+                [t, t[:, :8]], dim=1)[:, :k]), None
+            yield inputs(8, k, dtype, lambda t: torch.cat(
+                [t.new_zeros(1), t.reshape(-1)])[1:].view(8, k)), None
+
+
 def phase_parity() -> dict:
     import torch
     from repro_torch.core import decompose
@@ -269,25 +378,22 @@ def phase_parity() -> dict:
             raise AssertionError(f"{name}: not bit-equal to its plain "
                                  f"version (max abs err {diff})")
 
+    for x, perm in _act_quant_cases(gen):
+        for bits, signed in AQ_WIDTHS:
+            xb = x[bits, signed]
+            got = aq.act_quant(xb, bits=bits, signed=signed, perm=perm)
+            want = ref.act_quant_ref(xb, bits=bits, signed=signed, perm=perm)
+            hold("act_quant", got[0], want[0])
+            hold("act_quant", got[1], want[1])
+        m = x["rows"].shape[0] if perm is None else perm.shape[0]
+        qmax = torch.tensor(ROWS_QMAX, device="cuda").repeat(m)[:m, None]
+        got = aq.act_quant_rows(x["rows"], qmax, perm=perm)
+        want = ref.act_quant_rows_ref(x["rows"], qmax, perm=perm)
+        hold("act_quant_rows", got[0], want[0])
+        hold("act_quant_rows", got[1], want[1])
+    sync()
     shapes = [(m, k, n) for m in (8, 64) for k, n in GEMM_SHAPES]
     shapes.append((5, 4100, 1000))
-    for k in sorted({k for _, k, _ in shapes}):
-        for m in (5, 8, 64):
-            x = torch.randn((m, k), device="cuda", generator=gen) * 3.0
-            for bits, signed in ((8, True), (4, True), (2, True), (8, False),
-                                 (4, False)):
-                xin = x.abs() if not signed else x
-                got = aq.act_quant(xin, bits=bits, signed=signed)
-                want = ref.act_quant_ref(xin, bits=bits, signed=signed)
-                hold("act_quant", got[0], want[0])
-                hold("act_quant", got[1], want[1])
-            qmax = torch.tensor([[127.0], [7.0], [1.0]], device="cuda"
-                                ).repeat(m, 1)[:m].contiguous()
-            got = aq.act_quant_rows(x, qmax)
-            want = ref.act_quant_rows_ref(x, qmax)
-            hold("act_quant_rows", got[0], want[0])
-            hold("act_quant_rows", got[1], want[1])
-    sync()
     for m, k, n in shapes:
         x, planes = _inputs(m, k, n, gen)
         for p in (1, 2, 3, 4):
@@ -582,6 +688,7 @@ def _profile_chunk(eng, reqs) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     log("[mixed] profile of one decode chunk: " + json.dumps({
         "steps": seen["steps"], "wall_ms": seen["wall_ms"],
+        "device_ops_per_step": len(spans) / seen["steps"],
         "device_busy_ms": busy_us / 1e3 if spans else "not measured",
         "device_busy_share": busy_us / 1e3 / seen["wall_ms"]
         if spans else "not measured",
@@ -595,8 +702,15 @@ def _profile_chunk(eng, reqs) -> None:
     own = sorted(stats.items(), key=lambda kv: -kv[1][2])[:10]
     cum = sorted(((f, v) for f, v in stats.items() if "repro_torch" in f[0]),
                  key=lambda kv: -kv[1][3])[:12]
+    # Calls per step of the two Tensor methods a call site would spend on
+    # gathering x and copying it to f32 before kernel 2 (it does neither).
+    methods = {name: sum(v[1] for f, v in stats.items()
+                         if f[2] == f"<method '{name}' of "
+                         "'torch._C.TensorBase' objects>") / steps
+               for name in ("index_select", "to")}
     log("[mixed] host profile of the next chunk (cProfile): " + json.dumps({
         "steps": steps, "wall_ms": seen["host_wall_ms"],
+        "tensor_calls_per_step": methods,
         "self_ms_per_step": [[where(f), v[1] / steps, 1e3 * v[2] / steps]
                              for f, v in own],
         "cum_ms_per_step": [[where(f), v[1] / steps, 1e3 * v[3] / steps]
@@ -728,7 +842,8 @@ HEAD_START_CYCLES = 2_000_000
 def _time_ms(fn, flush, reps: int = 25, warm: int = 3) -> float:
     """Median CUDA-event ms of ``fn``, the L2 cache flushed before each
     timed call (``flush`` is a buffer larger than it): a decode step reads
-    each weight once, so the GEMMs find their weights cold."""
+    each weight once, so the GEMMs find their weights cold.  A one-byte
+    ``flush`` leaves the L2 warm."""
     import torch
     for _ in range(warm):
         fn()
@@ -770,7 +885,8 @@ def phase_times() -> dict:
         "M > 16); no single PyTorch call computes act_quant, act_quant_rows, "
         "grouped_matmul or grouped_dequant_matmul")
 
-    def row(kernel, shape, fn, plain, nbytes, ops, library=None):
+    def row(kernel, shape, fn, plain, nbytes, ops, library=None,
+            flush=flush):
         ms = _time_ms(fn, flush)
         plain_ms = _time_ms(plain, flush, reps=5, warm=1)
         lib_ms = _time_ms(library, flush) if library is not None else None
@@ -780,15 +896,57 @@ def phase_times() -> dict:
         log("[times] " + json.dumps(r))
         rows.append(r)
 
+    # The launch floor: an empty kernel, with the same spin and events.
+    dev = torch.device("cuda")
+    floor = _time_ms(lambda: aq.noop(dev), flush)
+    log("[times] " + json.dumps({"launch_floor_ms": floor}))
+    log("[times] act_quant rows: bf16 is the call as the main path makes "
+        "it (kernel 2 gathering the rows by perm); f32 reads f32 rows; "
+        "'gather+cast f32' times index_select, the f32 copy and the f32 "
+        "launch, a call site that gathers and widens x before the kernel; "
+        "'warm L2' flushes nothing, as a step finds x just written")
+    # A one-byte "flush": the inputs stay in L2 from the warm-up calls.
+    no_flush = torch.empty(1, dtype=torch.uint8, device="cuda")
     for m, k in ((8, 4096), (64, 4096), (8, 12288), (64, 12288)):
-        x = torch.randn((m, k), device="cuda", generator=gen)
+        xb = torch.randn((m, k), device="cuda", generator=gen
+                         ).to(torch.bfloat16)
+        xf = xb.float()
+        perm = torch.randperm(m, device="cuda", generator=gen)
         qmax = torch.full((m, 1), 7.0, device="cuda")
-        nbytes = m * k * 5 + m * 4
-        row("act_quant", f"M={m} K={k} bits=8",
-            lambda: aq.act_quant(x), lambda: ref.act_quant_ref(x), nbytes, 0)
-        row("act_quant_rows", f"M={m} K={k}",
-            lambda: aq.act_quant_rows(x, qmax),
-            lambda: ref.act_quant_rows_ref(x, qmax), nbytes + m * 4, 0)
+        # x read once, codes and scales written once; kernel 2 also reads
+        # qmax and perm.
+        out = m * k + m * 4
+        row("act_quant", f"M={m} K={k} bits=8 bf16",
+            lambda: aq.act_quant(xb), lambda: ref.act_quant_ref(xb),
+            2 * m * k + out, 0)
+        row("act_quant", f"M={m} K={k} bits=8 f32",
+            lambda: aq.act_quant(xf), lambda: ref.act_quant_ref(xf),
+            4 * m * k + out, 0)
+        row("act_quant_rows", f"M={m} K={k} bf16 perm",
+            lambda: aq.act_quant_rows(xb, qmax, perm=perm),
+            lambda: ref.act_quant_rows_ref(xb, qmax, perm=perm),
+            2 * m * k + out + m * 12, 0)
+        row("act_quant_rows", f"M={m} K={k} f32",
+            lambda: aq.act_quant_rows(xf, qmax),
+            lambda: ref.act_quant_rows_ref(xf, qmax),
+            4 * m * k + out + m * 4, 0)
+        if m == 8:
+            row("act_quant_rows", f"M={m} K={k} gather+cast f32",
+                lambda: aq.act_quant_rows(xb.index_select(0, perm).float(),
+                                          qmax),
+                lambda: ref.act_quant_rows_ref(xb, qmax, perm=perm),
+                2 * m * k + out + m * 12, 0)
+            row("act_quant_rows", f"M={m} K={k} bf16 perm warm L2",
+                lambda: aq.act_quant_rows(xb, qmax, perm=perm),
+                lambda: ref.act_quant_rows_ref(xb, qmax, perm=perm),
+                2 * m * k + out + m * 12, 0, flush=no_flush)
+        else:
+            row("act_quant", f"M={m} K={k} bits=8 cast f32",
+                lambda: aq.act_quant(xb.float()),
+                lambda: ref.act_quant_ref(xb), 2 * m * k + out, 0)
+            row("act_quant", f"M={m} K={k} bits=8 bf16 warm L2",
+                lambda: aq.act_quant(xb), lambda: ref.act_quant_ref(xb),
+                2 * m * k + out, 0, flush=no_flush)
     for m in (8, 64):
         for k, n in GEMM_SHAPES:
             x, planes = _inputs(m, k, n, gen)
@@ -832,7 +990,7 @@ def phase_times() -> dict:
                     m * k + wbytes + m * 16 + 4 * m * n, 2.0 * m * k * n * 4)
             del x, planes, packed, lib
             torch.cuda.empty_cache()
-    return {"rows": rows}
+    return {"rows": rows, "launch_floor_ms": floor}
 
 
 # ------------------------------------------------------------------ main
@@ -841,8 +999,8 @@ def phase_times() -> dict:
 # mixed-tier decode M=8 for act_quant_rows and the grouped GEMMs; the packed
 # store for grouped_matmul, whose only caller is the kernel-level API).
 SUMMARY_SHAPE = {
-    "act_quant": "M=64 K=4096 bits=8",
-    "act_quant_rows": "M=8 K=4096",
+    "act_quant": "M=64 K=4096 bits=8 bf16",
+    "act_quant_rows": "M=8 K=4096 bf16 perm",
     "bitserial_matmul": "M=64 K=4096 N=12288 P=4",
     "grouped_dequant_matmul": "M=8 K=4096 N=12288 Pmax=4",
     "packed_bitserial_matmul": "M=64 K=4096 N=12288 P=4",
@@ -890,6 +1048,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]}
+        if name.startswith("act_quant"):
+            entry["launch_floor_ms"] = out["times"]["launch_floor_ms"]
         if name == "grouped_dequant_matmul":   # its packed mode, on "packed"
             tp = by_shape[(name, SUMMARY_SHAPE[name] + " packed")]
             entry["packed"] = {

@@ -34,8 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # C signatures: "p" = pointer (c_void_p), "i" = int; the CUDA stream is
 # always the last argument and is appended by launch().
 SIGNATURES: Dict[str, str] = {
-    "act_quant_f32": "pppiiii",
-    "act_quant_rows_f32": "ppppii",
+    "act_quant_gather": "piipippiiii",
+    "act_quant_rows_gather": "piipipppii",
+    "repro_noop": "",
     "bitserial_matmul_s8": "p" * 5 + "i" * 15,
     "packed_bitserial_matmul_u8": "p" * 5 + "i" * 13,
     "grouped_matmul_s8": "p" * 6 + "i" * 11,

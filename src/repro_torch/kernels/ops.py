@@ -192,15 +192,22 @@ def unpack_planes(packed: torch.Tensor, w_bits: int,
     return torch.stack(planes)
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """x [..., K] as the act-quant kernels' [R, K] rows: a view wherever
+    the last axis is contiguous (the kernels take any row stride)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    return x2 if x2.stride(-1) == 1 else x2.contiguous()
+
+
 def quantize_activations(x: torch.Tensor, a_bits: int, *,
                          signed: bool = True, plain: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row activation quantization.  x f32 [..., K] -> (codes, scale
-    [..., 1]), through the ``act_quant`` kernel wrapper (``plain``: through
-    its plain version)."""
+    """Per-row activation quantization.  x f32/bf16 [..., K] -> (codes,
+    scale [..., 1]), through the ``act_quant`` kernel wrapper, which reads
+    x in its own dtype (``plain``: through its plain version)."""
     lead, k = x.shape[:-1], x.shape[-1]
     fn = ref.act_quant_ref if plain else act_quant_kernel.act_quant
-    q, s = fn(x.reshape(-1, k).contiguous(), bits=a_bits, signed=signed)
+    q, s = fn(_rows(x), bits=a_bits, signed=signed)
     return q.reshape(*lead, k), s.reshape(*lead, 1)
 
 
@@ -212,8 +219,7 @@ def _quantize_shared(x: torch.Tensor, a_bits: int, a_signed: bool,
     key = ("uniform", a_bits, a_signed, plain)
     if act_quants is not None and key in act_quants:
         return act_quants[key]
-    qs = quantize_activations(x.to(torch.float32), a_bits, signed=a_signed,
-                              plain=plain)
+    qs = quantize_activations(x, a_bits, signed=a_signed, plain=plain)
     if act_quants is not None:
         act_quants[key] = qs
     return qs
@@ -300,9 +306,9 @@ def bitserial_matmul_planes(x_int8: torch.Tensor, qw: QuantizedWeight, *,
 @functools.lru_cache(maxsize=1024)
 def _qmax_column(rows_bits: Tuple[Tuple[int, int], ...],
                  device: torch.device) -> torch.Tensor:
-    """f32 [sum(rows)] of ``2^(b-1) - 1`` per row, in group order."""
+    """f32 [sum(rows), 1] of ``2^(b-1) - 1`` per row, in group order."""
     return torch.from_numpy(np.concatenate([
-        np.full((rows,), float((1 << (bits - 1)) - 1), np.float32)
+        np.full((rows, 1), float((1 << (bits - 1)) - 1), np.float32)
         for rows, bits in rows_bits])).to(device)
 
 
@@ -321,21 +327,23 @@ def _quantize_activations_rows(x: torch.Tensor, row_groups: RowGroups,
                                perm: Optional[torch.Tensor], *,
                                plain: bool = False
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mixed-width per-row activation quantization (signed) in one pass:
-    the batch's rows gathered by ``perm`` into group order first, then
-    each row quantized at its own ``a_bits``, carried by a per-row f32
-    qmax.  Each row's codes and scale depend on that row alone, so they
-    equal quantizing the un-permuted batch and gathering the results."""
+    """Mixed-width per-row activation quantization (signed) in one launch:
+    output row ``i`` quantizes the batch's row ``perm[i]`` (group order)
+    at its own ``a_bits``, carried by a per-row f32 qmax; the kernel
+    gathers the rows and reads x in its own dtype itself.  Each row's codes
+    and scale depend on that row alone, so they equal quantizing the
+    un-permuted batch and gathering the results."""
     lead, k = x.shape[:-1], x.shape[-1]
-    if perm is not None:
-        x = x.index_select(0, perm)
-    qmax_sorted = _qmax_column(tuple((rows, g.a_bits) for rows, g in
-                                     row_groups), x.device)
-    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    qmax_full = qmax_sorted.reshape(shape).expand(*lead, 1).reshape(-1, 1)
+    reps = 1                       # flat rows per leading row
+    for d in lead[1:]:
+        reps *= d
+    qmax = _qmax_column(tuple((rows * reps, g.a_bits) for rows, g in
+                              row_groups), x.device)
+    if perm is not None and reps > 1:
+        perm = (perm.reshape(-1, 1) * reps +
+                torch.arange(reps, device=perm.device)).reshape(-1)
     fn = ref.act_quant_rows_ref if plain else act_quant_kernel.act_quant_rows
-    q, s = fn(x.to(torch.float32).reshape(-1, k).contiguous(),
-              qmax_full.contiguous())
+    q, s = fn(_rows(x), qmax, perm=perm)
     return q.reshape(*lead, k), s.reshape(*lead, 1)
 
 
@@ -457,7 +465,7 @@ def matmul(x: torch.Tensor, w: Optional[torch.Tensor], prec: LayerPrecision,
             gkey = (gprec.a_bits, gprec.a_signed)
             if gkey not in quants:
                 q, s = quantize_activations(
-                    x.to(torch.float32), gprec.a_bits, signed=gprec.a_signed,
+                    x, gprec.a_bits, signed=gprec.a_signed,
                     plain=gprec.backend == "decomposed")
                 if perm is not None:
                     q = q.index_select(0, perm)

@@ -9,7 +9,7 @@ here (:func:`packed_field`), independently of ``ops.unpack_planes``.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,10 +33,22 @@ def quant_scale(amax: torch.Tensor, qmax: Union[torch.Tensor, float],
     return torch.clamp_min(amax, eps) * inv
 
 
-def act_quant_ref(x: torch.Tensor, bits: int = 8,
-                  signed: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+def _gathered_f32(x: torch.Tensor,
+                 perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``f32(x)[perm]`` (all rows without ``perm``): the rows the act-quant
+    kernels read, widened to f32 (exact from bf16)."""
+    if perm is not None:
+        x = x.index_select(0, perm)
+    return x.to(torch.float32)
+
+
+def act_quant_ref(x: torch.Tensor, bits: int = 8, signed: bool = True,
+                  perm: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric activation quantization at one width.
-    x f32 [M, K] -> (int8 [M, K] (uint8 if unsigned), scale f32 [M, 1])."""
+    x f32/bf16 [R, K] (rows ``perm`` [M], else all R) -> (int8 [M, K]
+    (uint8 if unsigned), scale f32 [M, 1])."""
+    x = _gathered_f32(x, perm)
     qmax = (1 << (bits - 1)) - 1 if signed else (1 << bits) - 1
     qmin = -(1 << (bits - 1)) if signed else 0
     amax = x.abs().amax(dim=-1, keepdim=True)
@@ -46,10 +58,13 @@ def act_quant_ref(x: torch.Tensor, bits: int = 8,
     return q, scale.to(torch.float32)
 
 
-def act_quant_rows_ref(x: torch.Tensor, qmax: torch.Tensor
+def act_quant_rows_ref(x: torch.Tensor, qmax: torch.Tensor,
+                       perm: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row-range quantization (signed): ``qmax`` f32 [M, 1] carries each
-    row's ``2^(b-1) - 1``.  Returns (int8 [M, K], scale f32 [M, 1])."""
+    """Per-row-range quantization (signed) of ``f32(x)[perm]``: ``qmax``
+    f32 [M, 1] carries each output row's ``2^(b-1) - 1``.  Returns
+    (int8 [M, K], scale f32 [M, 1])."""
+    x = _gathered_f32(x, perm)
     amax = x.abs().amax(dim=-1, keepdim=True)
     scale = quant_scale(amax, qmax)
     q = torch.clamp(torch.round(x / scale), min=-qmax - 1.0, max=qmax)

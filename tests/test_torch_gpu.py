@@ -44,18 +44,65 @@ def _counted(name, fn):
     return out
 
 
-@pytest.mark.parametrize("m,k", [(5, 4100), (8, 4096), (33, 96)])
-def test_act_quant_kernels(gen, m, k):
+def _act_rows(gen, m, k, qmaxes, signed):
+    """f32 [m, k] normal rows (x3); every row 4j + 1 on .5 boundaries after
+    the divide at its qmax (amax = qmax / 8, scale = 1/8, x / scale =
+    n + 1/2), every row 4j + 3 zero (scale = 1e-8 * (1/qmax))."""
     x = torch.randn((m, k), device="cuda", generator=gen) * 3
-    for bits, signed in ((8, True), (3, True), (8, False)):
-        got = _counted("act_quant",
-                       lambda: aq.act_quant(x, bits=bits, signed=signed))
-        want = ref.act_quant_ref(x, bits=bits, signed=signed)
+    for r in range(1, m, 4):
+        q = qmaxes[r % len(qmaxes)]
+        n = torch.randint(-int(q) if signed else 0, int(q), (k,),
+                          device="cuda", generator=gen)
+        x[r] = (n.float() + 0.5) / 8
+        x[r, 0] = (-q if signed else q) / 8
+    x[3::4] = 0
+    return x
+
+
+@pytest.mark.parametrize("k", [96, 4096, 4100, 12288])
+@pytest.mark.parametrize("m", [1, 5, 8, 33, 64])
+def test_act_quant_kernels(gen, m, k):
+    """Both kernels bit-equal to their plain versions on bf16 and f32 rows,
+    without and with a row gather (a shuffle with a repeated row)."""
+    perm = torch.randperm(m, device="cuda", generator=gen)
+    perm[-1] = perm[0]
+    rows_qmax = (127.0, 7.0, 1.0)
+    qmax = torch.tensor(rows_qmax, device="cuda").repeat(m)[:m, None]
+    for dtype, pdtype in ((torch.float32, torch.int64),
+                          (torch.bfloat16, torch.int32)):
+        for p in (None, perm.to(pdtype)):
+            for bits, signed in [(b, True) for b in range(2, 9)] + \
+                    [(8, False)]:
+                q = float((1 << (bits - 1)) - 1 if signed else (1 << bits) - 1)
+                x = _act_rows(gen, m, k, [q], signed).to(dtype)
+                got = _counted("act_quant", lambda: aq.act_quant(
+                    x, bits=bits, signed=signed, perm=p))
+                want = ref.act_quant_ref(x, bits=bits, signed=signed, perm=p)
+                assert torch.equal(got[0], want[0]), (dtype, p, bits, signed)
+                assert torch.equal(got[1], want[1]), (dtype, p, bits, signed)
+            x = _act_rows(gen, m, k, rows_qmax, True).to(dtype)
+            got = _counted("act_quant_rows",
+                           lambda: aq.act_quant_rows(x, qmax, perm=p))
+            want = ref.act_quant_rows_ref(x, qmax, perm=p)
+            assert torch.equal(got[0], want[0]) and \
+                torch.equal(got[1], want[1]), (dtype, p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [4096, 12288])
+def test_act_quant_kernels_take_views(gen, dtype, k):
+    """Rows 8 elements apart (the register path with a row stride) and a
+    base one element past a 16-byte boundary (the generic path)."""
+    x = (torch.randn((8, k + 8), device="cuda", generator=gen) * 3).to(dtype)
+    flat = torch.cat([x.new_zeros(1), x[:, :k].reshape(-1)])
+    qmax = torch.full((8, 1), 7.0, device="cuda")
+    for view in (x[:, :k], flat[1:].view(8, k)):
+        got = _counted("act_quant", lambda: aq.act_quant(view))
+        want = ref.act_quant_ref(view)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    qmax = torch.tensor([[127.0], [7.0], [1.0]], device="cuda").repeat(m, 1)[:m]
-    got = _counted("act_quant_rows", lambda: aq.act_quant_rows(x, qmax))
-    want = ref.act_quant_rows_ref(x, qmax)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        got = _counted("act_quant_rows", lambda: aq.act_quant_rows(view, qmax))
+        want = ref.act_quant_rows_ref(view, qmax)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("m,k,n", [
@@ -146,6 +193,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         bsm.bitserial_matmul(x, planes, (0,))
     with pytest.raises(ValueError, match="contiguous"):
         aq.act_quant(torch.randn((64, 4), device="cuda").T)
+    with pytest.raises(ValueError, match="perm"):
+        aq.act_quant_rows(torch.randn((4, 64), device="cuda"),
+                          torch.ones((4, 1), device="cuda"),
+                          perm=torch.arange(4, device="cuda").float())
+    with pytest.raises(ValueError, match="perm"):
+        aq.act_quant(torch.randn((4, 64), device="cuda"),
+                     perm=torch.arange(4))
     xi = x.to(torch.int8)
     packed = torch.zeros((64, 8), dtype=torch.uint8, device="cuda")
     mult = torch.ones((4, 1), dtype=torch.int32, device="cuda")

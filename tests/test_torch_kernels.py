@@ -77,6 +77,72 @@ def test_act_quant_rows_matches_reference_and_pallas():
         assert torch.equal(q1, qt[r::4]) and torch.equal(s1, st[r::4])
 
 
+def _act_rows(rng, m: int, k: int, qmaxes, signed: bool) -> np.ndarray:
+    """f32 [m, k] normal rows (x3); every row 4j + 1 on .5 boundaries after
+    the divide at its qmax (amax = qmax / 8, scale = 1/8, x / scale =
+    n + 1/2), every row 4j + 3 zero (scale = 1e-8 * (1/qmax))."""
+    x = (rng.normal(size=(m, k)) * 3).astype(np.float32)
+    for r in range(1, m, 4):
+        q = qmaxes[r % len(qmaxes)]
+        n = rng.integers(-int(q) if signed else 0, int(q), size=k)
+        x[r] = (n + 0.5) / 8
+        x[r, 0] = (-q if signed else q) / 8
+    x[3::4] = 0
+    return x
+
+
+def _on_half(x32, scale) -> bool:
+    """Some x / scale lands exactly on n + 1/2 (round-half-even decides)."""
+    quot = np.asarray(x32) / np.asarray(scale)
+    return bool(np.any(np.abs(quot) % 1 == 0.5))
+
+
+# Output rows gathered from 12 bf16 rows: a shuffle of 16 with four rows
+# taken twice.
+PERM = np.random.default_rng(3).permutation(16) % 12
+
+
+@pytest.mark.parametrize("bits", range(2, 9))
+@pytest.mark.parametrize("signed", [True, False])
+def test_act_quant_bf16_rows_by_perm_match_pallas(bits, signed):
+    """The port's act_quant reads bf16 rows and gathers them by ``perm``
+    itself: equal to the Pallas kernel (interpret mode) on f32(x)[perm]."""
+    rng = np.random.default_rng(20 + bits)
+    q = (1 << (bits - 1)) - 1 if signed else (1 << bits) - 1
+    xj = jnp.asarray(_act_rows(rng, 12, 96, [q], signed), jnp.bfloat16)
+    x32 = xj.astype(jnp.float32)
+    perm = torch.from_numpy(PERM.astype(np.int32 if signed else np.int64))
+    for p, want_x in ((None, x32), (perm, x32[PERM])):
+        qt, st = taq.act_quant(_cpu(xj), bits=bits, signed=signed, perm=p)
+        qp, sp = jaq.act_quant(want_x, bits=bits, signed=signed, bm=4,
+                               interpret=True)
+        _eq(qp, qt)
+        _eq(sp, st)
+        assert _on_half(want_x, sp)
+
+
+def test_act_quant_rows_bf16_rows_by_perm_match_pallas():
+    """act_quant_rows on bf16 rows gathered by ``perm``: equal to the
+    Pallas kernel (interpret mode) on f32(x)[perm], per-row qmax."""
+    rng = np.random.default_rng(2)
+    qm = (127.0, 7.0, 1.0, 31.0)
+    xj = jnp.asarray(_act_rows(rng, 16, 96, qm, True)[:12], jnp.bfloat16)
+    x32 = xj.astype(jnp.float32)
+    for p in (None, PERM):
+        rows = 12 if p is None else 16
+        qmax = np.asarray([[qm[i % 4]] for i in range(rows)], np.float32)
+        want_x = x32 if p is None else x32[p]
+        qt, st = taq.act_quant_rows(
+            _cpu(xj), torch.from_numpy(qmax),
+            perm=None if p is None else torch.from_numpy(p))
+        qp, sp = jaq.act_quant_rows(want_x, jnp.asarray(qmax), bm=4,
+                                    interpret=True)
+        _eq(qp, qt)
+        _eq(sp, st)
+        if p is None:
+            assert _on_half(want_x, sp)
+
+
 @pytest.mark.parametrize("p", [1, 2, 3, 4])
 @pytest.mark.parametrize("msb_first", [True, False])
 def test_bitserial_matmul_matches_pallas(p, msb_first):
@@ -169,25 +235,45 @@ def test_fused_decode_linear_bits_equal(tbackend, jbackend, dtype):
 def test_decomposed_quantizes_through_the_plain_versions(backend,
                                                          monkeypatch):
     """``cuda`` quantizes a mixed-tier batch through the act_quant_rows
-    wrapper, once for q/k/v alike; ``decomposed`` never calls a wrapper,
-    so on the card it launches no kernel, and its bits are the same."""
-    calls = []
+    wrapper, once for q/k/v alike, and hands it x itself: no
+    ``Tensor.index_select`` and no ``Tensor.to`` on x before the wrapper
+    (the kernel gathers the rows and widens bf16 itself).  ``decomposed``
+    never calls a wrapper, so on the card it launches no kernel, and its
+    bits are the same."""
+    calls, on_x, x_storage = [], [], [None]
     for name in ("act_quant", "act_quant_rows"):
         fn = getattr(taq, name)
         monkeypatch.setattr(taq, name, lambda *a, _f=fn, _n=name, **kw:
                             calls.append(_n) or _f(*a, **kw))
+    for name in ("index_select", "to"):
+        def counted(t, *a, _f=getattr(torch.Tensor, name), _n=name, **kw):
+            if t.untyped_storage().data_ptr() == x_storage[0]:
+                on_x.append((_n, len(calls)))     # wrapper calls so far
+            return _f(t, *a, **kw)
+        monkeypatch.setattr(torch.Tensor, name, counted)
     rng = np.random.default_rng(9)
     qw = tops.prepare_superplane(torch.from_numpy(
         rng.normal(size=(64, 48)).astype(np.float32)))
-    x = torch.from_numpy(rng.normal(size=(7, 1, 64)).astype(np.float32))
     tg = tuple((n, TLP(b, b, backend=backend)) for n, b in GROUPS)
-    acts = {}
-    ys = [tops.matmul(x, None, tg[0][1], qw=qw, row_groups=tg, act_quants=acts)
-          for _ in range(3)]
-    assert calls == (["act_quant_rows"] if backend == "cuda" else [])
-    want = tops.fused_decode_linear(
-        x, qw, tuple((n, g.with_backend("cuda")) for n, g in tg), None)
-    assert all(torch.equal(y, want) for y in ys)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(rng.normal(size=(7, 1, 64)).astype(
+            np.float32)).to(dtype)
+        for p in (None, torch.from_numpy(rng.permutation(7))):
+            calls.clear()
+            on_x.clear()
+            x_storage[0] = x.untyped_storage().data_ptr()
+            acts = {}
+            ys = [tops.matmul(x, None, tg[0][1], qw=qw, row_groups=tg,
+                              perm=p, act_quants=acts) for _ in range(3)]
+            x_storage[0] = None
+            if backend == "cuda":
+                assert calls == ["act_quant_rows"]
+                assert all(seen == 1 for _, seen in on_x), on_x
+            else:
+                assert calls == []
+            want = tops.fused_decode_linear(
+                x, qw, tuple((n, g.with_backend("cuda")) for n, g in tg), p)
+            assert all(torch.equal(y, want) for y in ys)
 
 
 @pytest.mark.parametrize("backend", ["cuda", "decomposed"])
@@ -207,6 +293,31 @@ def test_integer_matmul_matches_reference(backend, bits):
     for jqw, tqw in stores:
         _eq(jops.matmul(x, None, jp, qw=jqw),
             tops.matmul(_cpu(x), None, tp, qw=tqw))
+
+
+@pytest.mark.parametrize("mixed", [True, False])
+@pytest.mark.parametrize("lead", [(7, 1), (7, 2)])
+def test_quantize_activations_grouped_bf16_with_perm_matches_reference(
+        mixed, lead):
+    """A bf16 batch gathered by a slot permutation: codes and scales equal
+    the JAX package's (its jnp oracle and its Pallas kernel in interpret
+    mode) bit for bit, for mixed activation widths (one per-row-range
+    launch) and for one shared width, one or two rows per slot."""
+    rng = np.random.default_rng(11)
+    x = jnp.asarray(rng.normal(size=(*lead, 64)) * 3, jnp.bfloat16)
+    perm = rng.permutation(lead[0])
+    widths = [(w, w if mixed else 8) for _, w in GROUPS]
+    jg = tuple((n, JLP(w, a, backend="pallas"))
+               for (n, _), (w, a) in zip(GROUPS, widths))
+    tg = tuple((n, TLP(w, a, backend="cuda"))
+               for (n, _), (w, a) in zip(GROUPS, widths))
+    got = tops.quantize_activations_grouped(_cpu(x), tg,
+                                            torch.from_numpy(perm))
+    for use_pallas in (False, True):
+        want = jops.quantize_activations_grouped(
+            x, jg, jnp.asarray(perm), use_pallas=use_pallas)
+        _eq(want[0], got[0])
+        _eq(want[1], got[1])
 
 
 def test_quantize_activations_grouped_shares_codes():
@@ -232,6 +343,15 @@ def test_wrappers_check_their_inputs():
         taq.act_quant(x)
     with pytest.raises(ValueError, match="qmax"):
         taq.act_quant_rows(x.float(), torch.ones((3, 1)))
+    with pytest.raises(ValueError, match="qmax"):     # one per output row
+        taq.act_quant_rows(x.float(), torch.ones((4, 1)),
+                           perm=torch.tensor([0, 1]))
+    with pytest.raises(ValueError, match="perm"):
+        taq.act_quant(x.float(), perm=torch.tensor([0.0, 1.0]))
+    with pytest.raises(ValueError, match="perm"):
+        taq.act_quant(x.float(), perm=torch.tensor([[0, 1]]))
+    with pytest.raises(ValueError, match="contiguous"):
+        taq.act_quant(x.float().T)
     with pytest.raises(ValueError, match="shapes"):
         tbsm.bitserial_matmul(torch.zeros((2, 8), dtype=torch.int8),
                               torch.zeros((1, 9, 4), dtype=torch.int8), (0,))
