@@ -31,9 +31,13 @@ Phases, in order (any failure exits non-zero and prints no result line):
             grouped GEMMs run both layouts (the packed one signed and
             unsigned) with three tier groups, and at M in {1, 3, 8, 16, 17,
             40} every tier mix of ``_grouped_layouts`` (one-tier batches of
-            Pmax 1-4, two-tier batches of Pmax 2 and 3).  This phase's
-            launches are the only ones of ``grouped_matmul``, which no
-            serving path runs.
+            Pmax 1-4, two-tier batches of Pmax 2 and 3).  The verify
+            layouts of a speculative round (8 slots, k = 4: M = 40 in
+            groups of n*(k+1) rows, as ``ServeEngine._group_layout`` makes
+            them) run kernel 2 on bf16 rows with the flat row ``perm`` and
+            kernels 4 and 6 in both layouts at every serving shape, the LM
+            head included.  This phase's launches are the only ones of
+            ``grouped_matmul``, which no serving path runs.
 3. mixed    serves full-width qwen3-8b (seeded random weights made on the
             card layer by layer, each layer's float weights freed once its
             superplane store is prepared) with tiers 8/8 4/4 2/2 through the
@@ -55,11 +59,31 @@ Phases, in order (any failure exits non-zero and prints no result line):
             Then the int8 planes of the same codes and the packed store
             serve the requests in turns (planes, packed, packed, planes),
             each with equal streams, for a same-card step-time comparison.
+4b. spec    self-speculative decoding and seeded sampling on the phase-3
+            model (full-width qwen3-8b, 36 layers, seed 0, int8 planes,
+            max_batch 8, the same 9 requests).  (a) greedy: requests with
+            uid % 3 != 2 speculate (draft tier 2/2, k = 4), the rest decode
+            plainly in the same batches; the streams must equal phase 3's,
+            no weight is prepared again, and kernels 1-4 launch.  (b)
+            sampled (temperature 0.8, top-k 40, seed = uid), without and
+            with speculation.  Prints the spec stats, the acceptance rate,
+            decode tokens/s beside phase 3's, the launches of kernels 2
+            and 4 per speculative round (draft and verify), and the device
+            operations of the plain torch sampling and acceptance code
+            (``torch.profiler``).  Then, at 4
+            layers of the same width: each of those three runs again on
+            ``cuda`` and on the plain ``decomposed`` backend (which must
+            launch nothing) with equal streams, the sampled run without
+            speculation at max_batch 3 with equal streams, and the verify
+            window position by position against sequential decode steps,
+            logits and arena bit-equal, for both stores.
 5. fixed    the quickstart form, --w-bits 4 --kv-bits 8 (LSB-first planes,
             int8 KV), at full width with the depth cut to 4 layers; the
             ``cuda`` engine's streams must equal the ``decomposed`` one's
             and the packed ``cuda`` engine's.
-6. times    median CUDA-event time of each kernel at its serving shapes,
+6. times    median CUDA-event time of each kernel at its serving shapes
+            (kernels 2 and 4 also at the verify window, M = 40 in the
+            three-tier verify layout),
             with a cold L2 cache (as a decode step finds the weights) and
             the call enqueued before the card reaches it (a spin first),
             beside its bound on this card, its plain version's time and,
@@ -294,6 +318,41 @@ def _grouped_args(layout, n: int, gen):
     return mult, xs, ws.contiguous(), rg
 
 
+# A speculative round of phase 4b: SPEC_SLOTS slots, SPEC_K drafts.
+SPEC_SLOTS, SPEC_K = 8, 4
+# Slot-tier vectors of a verify (or draft) step: three tiers; one 8/8 slot
+# among draft-tier slots; two tiers of 4/4 and 2/2; one tier.
+VERIFY_TIER_MIXES = (("8/8", "4/4", "2/2") * 2 + ("8/8", "4/4"),
+                     ("8/8",) + ("2/2",) * 7,
+                     ("4/4",) * 2 + ("2/2",) * 6,
+                     ("8/8",) * 8)
+TIER_PLANES = {"8/8": (4, 127.0), "4/4": (2, 7.0), "2/2": (1, 1.0)}
+
+
+def _verify_layout(tiers):
+    """The verify step's tables for one slot-tier vector, as the engine
+    makes them (``_group_layout``, then ``ops._quantize_activations_rows``
+    with SPEC_K + 1 rows a slot): (rows, planes) per group, the per-row
+    qmax column and the flat row perm."""
+    import numpy as np
+    import torch
+    w = SPEC_K + 1
+    rank = {t: i for i, t in enumerate(TIER_PLANES)}
+    order = sorted(range(len(tiers)), key=lambda s: (rank[tiers[s]], s))
+    layout = []
+    for s in order:
+        if layout and layout[-1][0] == tiers[s]:
+            layout[-1][1] += w
+        else:
+            layout.append([tiers[s], w])
+    qmax = torch.tensor([TIER_PLANES[tiers[s]][1] for s in order
+                         for _ in range(w)], device="cuda")[:, None]
+    perm = torch.from_numpy((np.asarray(order)[:, None] * w +
+                             np.arange(w)).reshape(-1)).cuda()
+    return (tuple((rows, TIER_PLANES[t][0]) for t, rows in layout), qmax,
+            perm)
+
+
 # Kernel 1's widths in phase 2 (2-8 bits signed, 8 unsigned) and kernel
 # 2's per-row qmax, cycled over the rows.
 AQ_WIDTHS = tuple((b, True) for b in range(2, 9)) + ((8, False),)
@@ -367,6 +426,10 @@ def phase_parity() -> dict:
     checks = {name: 0 for name in KERNELS}
 
     def hold(name: str, got, want) -> None:
+        if isinstance(got, tuple):          # (codes, scales) pairs
+            for g, w in zip(got, want):
+                hold(name, g, w)
+            return
         checks[name] += 1
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs "
@@ -479,6 +542,31 @@ def phase_parity() -> dict:
         del x, planes, packed
         sync()
         torch.cuda.empty_cache()
+    # The verify layouts of a speculative round (SPEC_SLOTS slots, window
+    # SPEC_K + 1): kernel 2 on bf16 rows through the flat perm, kernels 4
+    # and 6 on both layouts at every serving shape (the LM head included).
+    m = SPEC_SLOTS * (SPEC_K + 1)
+    for k, n in GEMM_SHAPES:
+        x, planes = _inputs(m, k, n, gen)
+        packed = ops.pack_planes(planes.flip(0), 8)
+        xb = (torch.randn((m, k), device="cuda", generator=gen) * 3
+              ).to(torch.bfloat16)
+        for tiers in VERIFY_TIER_MIXES:
+            layout, qmax, perm = _verify_layout(tiers)
+            hold("act_quant_rows", aq.act_quant_rows(xb, qmax, perm=perm),
+                 ref.act_quant_rows_ref(xb, qmax, perm=perm))
+            mult, xs, ws, rg = _grouped_args(layout, n, gen)
+            pre = planes[:mult.shape[1]]
+            for w, lay in ((pre, {}), (packed, dict(packed=True))):
+                hold("grouped_dequant_matmul",
+                     gmm.grouped_dequant_matmul(x, w, mult, xs, ws, rg, **lay),
+                     ref.grouped_dequant_matmul_ref(x, w, mult, xs, ws, rg,
+                                                    **lay))
+                hold("grouped_matmul", gmm.grouped_matmul(x, w, mult, **lay),
+                     ref.grouped_matmul_ref(x, w, mult, **lay))
+        del x, planes, packed, xb
+        sync()
+        torch.cuda.empty_cache()
     launches = dict(_build.LAUNCHES)
     log("[parity] tolerance 0 (bit-equal): " + ", ".join(
         f"{k}: {checks[k]} cases" for k in KERNELS))
@@ -518,6 +606,7 @@ def _serve(engine, reqs, label: str) -> dict:
         "decode_chunks": st.decode_chunks,
         "decode_tokens_per_s": st.decode_slot_steps / st.decode_seconds,
         "mean_decode_step_ms": 1e3 * st.decode_seconds / st.decode_steps,
+        "decode_s": st.decode_seconds,
         "prefill_s": st.prefill_seconds,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches,
@@ -793,6 +882,286 @@ def _unpacked(tree):
     return tree
 
 
+# --------------------------------------------------------------- phase 4b
+def _variant(reqs, *, spec: bool, sampled: bool):
+    """``reqs`` with uid % 3 != 2 speculating (draft tier 2/2, SPEC_K)
+    where ``spec``, and all sampling (temperature 0.8, top-k 40, seed =
+    uid) where ``sampled``."""
+    import dataclasses
+
+    from repro_torch.spec import SamplingParams, SpecConfig
+    return [dataclasses.replace(
+        r, spec=SpecConfig("2/2", SPEC_K) if spec and r.uid % 3 != 2
+        else None,
+        sampling=SamplingParams(0.8, 40, seed=r.uid) if sampled else None)
+        for r in reqs]
+
+
+def _spec_stats(engine) -> dict:
+    st = engine.stats
+    return {"spec_rounds": st.spec_rounds,
+            "spec_draft_steps": st.spec_draft_steps,
+            "spec_verify_steps": st.spec_verify_steps,
+            "spec_drafted": st.spec_drafted,
+            "spec_accepted": st.spec_accepted,
+            "spec_emitted": st.spec_emitted,
+            "acceptance_rate": st.spec_accepted / max(1, st.spec_drafted),
+            "emitted_per_verify_step":
+                st.spec_emitted / max(1, st.spec_verify_steps)}
+
+
+def _count_rounds(engine) -> dict:
+    """Counts, per kernel, the launches made inside the engine's
+    speculative rounds and, of those, inside its verify steps (wrappers
+    on the instance; removed by deleting the two attributes)."""
+    from repro_torch.kernels import _build
+    counts = {"round": dict.fromkeys(KERNELS, 0),
+              "verify": dict.fromkeys(KERNELS, 0)}
+
+    def counted(key, fn):
+        def run(*args, **kwargs):
+            before = dict(_build.LAUNCHES)
+            out = fn(*args, **kwargs)
+            for name in KERNELS:
+                counts[key][name] += _build.LAUNCHES[name] - before[name]
+            return out
+        return run
+    engine._spec_round = counted("round", engine._spec_round)
+    engine.model = _ModelView(engine.model,
+                              counted("verify", engine.model.verify_step))
+    return counts
+
+
+class _ModelView:
+    """``model`` with its ``verify_step`` replaced (for counting)."""
+
+    def __init__(self, model, verify_step):
+        self._model = model
+        self.verify_step = verify_step
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+
+def _emitted_per_s(stats: dict) -> float:
+    """Decode-emitted tokens (all but each request's prefill token) over
+    the decode seconds."""
+    return (stats["tokens"] - stats["prefills"]) / stats["decode_s"]
+
+
+def _check_same(label: str, got: dict, want: dict, what: str) -> None:
+    if got != want:
+        bad = sorted(u for u in want if got.get(u) != want[u])
+        raise AssertionError(f"{label}: streams differ from {what} "
+                             f"(uids {bad})")
+    log(f"[{label}] {len(got)} streams identical to {what}")
+
+
+def _verify_positions(label: str, model, params, rt, seed: int) -> None:
+    """On ``model`` (4 layers, full width): prefill SPEC_SLOTS right-padded
+    prompts, then the window [t0, 4 random tokens] through ONE verify step
+    at the mixed verify layout (and at one tier), against SPEC_K + 1
+    sequential decode steps on a copy of the arena: logits of the writing
+    rows and the whole arena bit-equal."""
+    import numpy as np
+    import torch
+    from repro_torch.models.layers import KVCache
+    b, w = SPEC_SLOTS, SPEC_K + 1
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(16, 65, size=b).astype(np.int32)
+    toks = rng.integers(0, model.cfg.vocab_size, size=(b, 64)).astype(np.int32)
+    active = torch.tensor([s % 3 != 2 for s in range(b)], device="cuda")
+    checked = []
+    for tiers in (VERIFY_TIER_MIXES[0], VERIFY_TIER_MIXES[3]):
+        caches = model.init_cache(b, 256, device="cuda")
+        logits, _ = model.prefill(params, rt.for_tier("8/8"), caches,
+                                  tokens=torch.from_numpy(toks).cuda(),
+                                  seq_lengths=torch.from_numpy(lens).cuda())
+        t0 = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        window = torch.cat([t0[:, None], torch.from_numpy(rng.integers(
+            0, model.cfg.vocab_size, size=(b, w - 1)).astype(np.int32)
+        ).cuda()], dim=1)
+        rank = {t: i for i, t in enumerate(TIER_PLANES)}
+        order = sorted(range(b), key=lambda s: (rank[tiers[s]], s))
+        groups = []
+        for s in order:
+            if groups and groups[-1][0] == tiers[s]:
+                groups[-1][1] += 1
+            else:
+                groups.append([tiers[s], 1])
+        rt_v = rt.for_groups(tuple((t, n) for t, n in groups),
+                             torch.tensor(order, device="cuda"))
+        seq = [{p: KVCache(*[None if t is None else t.clone() for t in (
+            c.k, c.v, c.k_scale, c.v_scale, c.length)])
+            for p, c in layer.items()} for layer in caches]
+        vlogits, _ = model.verify_step(params, rt_v, caches, tokens=window,
+                                       active=active)
+        for j in range(w):
+            lj, _ = model.decode_step(params, rt_v, seq,
+                                      tokens=window[:, j:j + 1],
+                                      active=active)
+            if not torch.equal(vlogits[active, j], lj[active, 0]):
+                diff = (vlogits[active, j].float() -
+                        lj[active, 0].float()).abs().max().item()
+                raise AssertionError(f"{label}: verify position {j} differs "
+                                     f"from decode step {j} (max abs "
+                                     f"{diff}) at layout {groups}")
+        for la, lb in zip(caches, seq):
+            for p in la:
+                for x, y in zip(vars(la[p]).values(), vars(lb[p]).values()):
+                    if x is not None and not torch.equal(x, y):
+                        raise AssertionError(f"{label}: verify arena differs "
+                                             "from sequential decode's")
+        checked.append([list(g) for g in groups])
+        del caches, seq
+    log(f"[{label}] verify window == {w} sequential decode steps, logits and "
+        f"arena bit-equal, layouts {checked}")
+
+
+def _sampling_device_ops(vocab: int) -> dict:
+    """Device operations (``torch.profiler``, CUDA activity) of the plain
+    torch sampling code at this run's shapes: one ``sample_tokens`` and
+    one ``sampling_probs`` over SPEC_SLOTS rows of ``vocab`` logits (the
+    selection of a sampled decode step; a draft step runs both), and the
+    acceptance of one round (``accept_counts``, ``correction_tokens``,
+    ``emission_window`` at k = SPEC_K)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.spec import sampling as sl
+    from repro_torch.spec import speculate as sp
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    b, k = SPEC_SLOTS, SPEC_K
+    logits = torch.randn((b, vocab), device="cuda", generator=gen
+                         ).to(torch.bfloat16)
+    keys = torch.randint(0, 1 << 32, (b, 2), device="cuda", generator=gen)
+    draws = torch.arange(b, dtype=torch.int32, device="cuda")
+    temp = torch.full((b,), 0.8, device="cuda")
+    topk = torch.full((b,), 40, dtype=torch.int32, device="cuda")
+    q = torch.softmax(torch.randn((b, k, vocab), device="cuda",
+                                  generator=gen), -1)
+    p = torch.softmax(torch.randn((b, k + 1, vocab), device="cuda",
+                                  generator=gen), -1)
+    drafts = torch.randint(0, vocab, (b, k), device="cuda", generator=gen,
+                           dtype=torch.int32)
+
+    def accept():
+        m = sp.accept_counts(drafts, q, p, keys, draws)
+        corr = sp.correction_tokens(q, p, m, keys, draws)
+        return sp.emission_window(drafts, corr, m)
+    calls = {"sample_tokens": lambda: sl.sample_tokens(
+                 logits, keys, draws, temp, topk),
+             "sampling_probs": lambda: sl.sampling_probs(logits, temp, topk),
+             "acceptance": accept}
+    out = {}
+    for name, fn in calls.items():
+        fn()                                   # warm up
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        out[name] = {"device_ops": len(evs), "device_ms": sum(
+            e.time_range.elapsed_us() for e in evs) / 1e3}
+    return out
+
+
+def phase_spec(mixed: dict, card: str) -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import uniform_schedule
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve import engine as engine_mod
+    sched = uniform_schedule(TIERS, backend="cuda")
+    plain = uniform_schedule(TIERS, backend="decomposed")
+    rt = Runtime(policy=sched.policy_for(), schedule=sched)
+    rt_plain = Runtime(policy=plain.policy_for(), schedule=plain)
+    cfg, model, params = _build_model(get_config("qwen3-8b").num_layers,
+                                      sched.prepare_policy(),
+                                      superplane=True, seed=0)
+    reqs = _requests(9, cfg.vocab_size, 16, list(TIERS), seed=1)
+    calls = engine_mod.PREPARE_CALLS
+    # (a) greedy, speculative and plain slots mixed, at full depth.
+    eng = engine_mod.ServeEngine(model, params, rt, **MIXED_KW)
+    per_round = _count_rounds(eng)
+    greedy = _serve(eng, _variant(reqs, spec=True, sampled=False),
+                    "spec-greedy")
+    if engine_mod.PREPARE_CALLS != calls:
+        raise AssertionError("spec: prepare_params ran after engine "
+                             "construction")
+    _check_same("spec-greedy", greedy["tokens"], mixed["streams"],
+                "phase mixed's (plain greedy decoding)")
+    _check_launches("spec-greedy", greedy["stats"]["launches"],
+                    used=("act_quant", "act_quant_rows", "bitserial_matmul",
+                          "grouped_dequant_matmul"),
+                    unused=("packed_bitserial_matmul", "grouped_matmul"))
+    stats = _spec_stats(eng)
+    if stats["spec_rounds"] == 0:
+        raise AssertionError("spec-greedy: no speculative round ran")
+    rounds = stats["spec_rounds"]
+    launches = {
+        name: {"per_round": per_round["round"][name] / rounds,
+               "verify_per_round": per_round["verify"][name] / rounds}
+        for name in ("act_quant", "act_quant_rows", "bitserial_matmul",
+                     "grouped_dequant_matmul")}
+    log("[spec-greedy] " + json.dumps({
+        **stats, "kernel_launches": launches,
+        "decode_emitted_tokens_per_s": _emitted_per_s(greedy["stats"]),
+        "mixed_decode_emitted_tokens_per_s": _emitted_per_s(mixed),
+        "card": card}))
+    del eng
+    log("[spec] sampling code on the card, B=8, k=4: " + json.dumps(
+        _sampling_device_ops(cfg.padded_vocab)))
+    # (b) sampled, without and with speculation, at full depth.
+    sampled = {}
+    for spec in (False, True):
+        label = f"spec-sampled{'-spec' if spec else ''}"
+        eng = engine_mod.ServeEngine(model, params, rt, **MIXED_KW)
+        run = _serve(eng, _variant(reqs, spec=spec, sampled=True), label)
+        _check_streams(label, run["tokens"], reqs, cfg.padded_vocab)
+        if spec:
+            log(f"[{label}] " + json.dumps(_spec_stats(eng)))
+        sampled[spec] = run["tokens"]
+        del eng
+    if sampled[False] == mixed["streams"]:
+        raise AssertionError("spec-sampled: sampled streams equal greedy "
+                             "ones")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # At 4 layers: the plain replays, max_batch 3, and the verify window
+    # position by position, for both stores.
+    for packed in (False, True):
+        cfg4, model4, params4 = _build_model(4, sched.prepare_policy(),
+                                             superplane=True, seed=0,
+                                             packed=packed)
+        store = "packed" if packed else "planes"
+        log(f"[spec-4] depth cut: 4 of qwen3-8b's 36 layers ({store})")
+        _verify_positions(f"spec-4-{store}", model4, params4, rt, seed=7)
+        if packed:
+            break
+        for spec, samp in ((True, False), (False, True), (True, True)):
+            label = (f"spec-4-{'spec' if spec else 'plain'}-"
+                     f"{'sampled' if samp else 'greedy'}")
+            rq = _variant(reqs, spec=spec, sampled=samp)
+            run = _serve(engine_mod.ServeEngine(model4, params4, rt,
+                                                **MIXED_KW), rq, label)
+            _check_plain(label, _serve(engine_mod.ServeEngine(
+                model4, params4, rt_plain, **MIXED_KW), rq, label + "-plain"),
+                run)
+            if samp and not spec:
+                small = _serve(engine_mod.ServeEngine(
+                    model4, params4, rt, **{**MIXED_KW, "max_batch": 3}), rq,
+                    label + "-batch3")
+                _check_same(label + "-batch3", small["tokens"], run["tokens"],
+                            "max_batch 8's")
+        del model4, params4
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {**greedy["stats"], "spec": stats, "launches_per_round": launches}
+
+
 def phase_fixed() -> dict:
     from repro_torch.core.policy import uniform_policy
     from repro_torch.models.layers import Runtime
@@ -990,6 +1359,35 @@ def phase_times() -> dict:
                     m * k + wbytes + m * 16 + 4 * m * n, 2.0 * m * k * n * 4)
             del x, planes, packed, lib
             torch.cuda.empty_cache()
+    # The verify window of a speculative round: M = SPEC_SLOTS * (SPEC_K+1)
+    # rows in the three-tier verify layout (groups of n * (k+1) rows).
+    layout, qmax, perm = _verify_layout(VERIFY_TIER_MIXES[0])
+    m = sum(r for r, _ in layout)
+    xb = torch.randn((m, 4096), device="cuda", generator=gen
+                     ).to(torch.bfloat16)
+    row("act_quant_rows", f"M={m} K=4096 bf16 perm verify",
+        lambda: aq.act_quant_rows(xb, qmax, perm=perm),
+        lambda: ref.act_quant_rows_ref(xb, qmax, perm=perm),
+        2 * m * 4096 + m * 4096 + m * 4 + m * 12, 0)
+    plane_rows = sum(r * p for r, p in layout)
+    for k, n in ((4096, 12288), (4096, 152064)):
+        x, planes = _inputs(m, k, n, gen)
+        packed = ops.pack_planes(planes.flip(0), 8)
+        mult, xs, ws, rg = _grouped_args(layout, n, gen)
+        pre = planes[:mult.shape[1]].contiguous()
+        scales = m * 16 + m * 4 + len(layout) * n * 4 + m * 4
+        for label, w, lay in (("", pre, {}),
+                              (" packed", packed, {"packed": True})):
+            row("grouped_dequant_matmul",
+                f"M={m} K={k} N={n} verify {layout}{label}",
+                lambda w=w, lay=lay: gmm.grouped_dequant_matmul(
+                    x, w, mult, xs, ws, rg, **lay),
+                lambda w=w, lay=lay: ref.grouped_dequant_matmul_ref(
+                    x, w, mult, xs, ws, rg, **lay),
+                m * k + w.numel() + scales + 2 * m * n,
+                2.0 * k * n * plane_rows)
+        del x, planes, packed, pre
+        torch.cuda.empty_cache()
     return {"rows": rows, "launch_floor_ms": floor}
 
 
@@ -1025,7 +1423,9 @@ def main() -> int:
     for phase, run in (("build", phase_build), ("parity", phase_parity),
                        ("mixed", phase_mixed),
                        ("packed", lambda: phase_packed(
-                           out["mixed"].pop("streams"))),
+                           out["mixed"]["streams"])),
+                       ("spec", lambda: phase_spec(out["mixed"],
+                                                   out["build"]["card"])),
                        ("fixed", phase_fixed), ("times", phase_times)):
         t = time.perf_counter()
         out[phase] = run()
@@ -1047,7 +1447,10 @@ def main() -> int:
             "max_abs_err": out["parity"]["max_abs_err"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "shape": t["shape"]}
+            "library_ms": t["library_ms"], "shape": t["shape"],
+            "launches_by_path": {path: out[path]["launches"][name]
+                                 for path in ("parity", "mixed", "packed",
+                                              "spec")}}
         if name.startswith("act_quant"):
             entry["launch_floor_ms"] = out["times"]["launch_floor_ms"]
         if name == "grouped_dequant_matmul":   # its packed mode, on "packed"

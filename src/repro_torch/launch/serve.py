@@ -1,6 +1,6 @@
 """Serving command line (port of ``repro.launch.serve``): quantize a model once
-into its plane store and serve a stream of greedy requests through the
-streaming engine (``submit`` / ``step`` / ``drain``).
+into its plane store and serve a stream of requests through the streaming
+engine (``submit`` / ``step`` / ``drain``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --reduced --w-bits 4 --kv-bits 8 --requests 8
@@ -14,6 +14,15 @@ mixed-tier batches):
 
 ``--packed`` prepares the byte-packed store (one uint8 per weight in place
 of int8 planes; even widths only, odd ``--w-bits`` keep their planes).
+
+Seeded sampling (``--temperature``, ``--top-k``) and self-speculative
+decoding (``--speculate``: draft ``--spec-k`` tokens a round at the
+``--draft-tier`` plane prefix, verify the window in one forward at each
+request's own tier):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --tiers 8/8 4/4 2/2 --speculate --draft-tier 2/2 --spec-k 4 \
+        --device cpu
 
 The backend defaults to ``cuda`` (the hand-written kernels) and the device
 to ``cuda``; ``--device cpu`` runs the kernels' plain versions.  Weights
@@ -35,6 +44,8 @@ from repro_torch.models.layers import Runtime
 from repro_torch.models.transformer import LM
 from repro_torch.serve import engine as engine_mod
 from repro_torch.serve.request import Request
+from repro_torch.spec.sampling import SamplingParams
+from repro_torch.spec.speculate import SpecConfig
 
 
 def main(argv=None):
@@ -57,9 +68,43 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--decode-chunk", type=int, default=8)
+    ap.add_argument("--speculate", action="store_true",
+                    help="self-speculative decoding: draft --spec-k tokens "
+                         "per round at the --draft-tier plane prefix, "
+                         "verify the window in one batched forward at each "
+                         "request's own tier (needs --tiers)")
+    ap.add_argument("--draft-tier", default=None, metavar="W/A",
+                    help="with --speculate: the draft tier, one of --tiers "
+                         "(default: the last)")
+    ap.add_argument("--spec-k", type=int, default=4, metavar="K",
+                    help="with --speculate: draft tokens per round")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0, metavar="K",
+                    help="with --temperature > 0: sample among the K most "
+                         "likely tokens (0 = the whole vocabulary)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+
+    # Flag checks before any model is built.
+    if args.speculate:
+        if not args.tiers:
+            ap.error("--speculate drafts at a plane-prefix tier; it needs "
+                     "--tiers")
+        if args.spec_k < 1:
+            ap.error(f"--spec-k must be >= 1, got {args.spec_k}")
+        if args.draft_tier is None:
+            args.draft_tier = args.tiers[-1]
+        elif args.draft_tier not in args.tiers:
+            ap.error(f"--draft-tier {args.draft_tier} is not one of the "
+                     f"serving tiers {args.tiers}")
+    elif args.draft_tier is not None:
+        ap.error("--draft-tier needs --speculate")
+    if args.temperature < 0.0:
+        ap.error(f"--temperature must be >= 0, got {args.temperature}")
+    if args.top_k < 0:
+        ap.error(f"--top-k must be >= 0, got {args.top_k}")
 
     schedule = None
     if args.tiers:
@@ -102,11 +147,17 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     tier_of = (lambda i: args.tiers[i % len(args.tiers)]) if args.tiers \
         else (lambda i: None)
+    sampling = None
+    if args.temperature > 0.0 or args.top_k > 0:
+        sampling = SamplingParams(temperature=args.temperature,
+                                  top_k=args.top_k, seed=args.seed)
+    spec = SpecConfig(draft_tier=args.draft_tier, k=args.spec_k) \
+        if args.speculate else None
     reqs = [Request(uid=i,
                     prompt=rng.integers(0, cfg.vocab_size,
                                         size=4 + i % 5).astype(np.int32),
                     max_new_tokens=1 + (args.max_new * (i % 4)) // 3,
-                    tier=tier_of(i))
+                    tier=tier_of(i), sampling=sampling, spec=spec)
             for i in range(args.requests)]
     t0 = time.time()
     handles = [engine.submit(r) for r in reqs]
@@ -126,6 +177,16 @@ def main(argv=None):
         "mixed_tier_chunks": st.mixed_tier_chunks,
         "decode_steps_by_tier": st.decode_steps_by_tier,
         "tokens_by_tier": st.tokens_by_tier}, sort_keys=True))
+    if args.speculate:
+        rate = st.spec_accepted / st.spec_drafted if st.spec_drafted else 0.0
+        print("spec " + json.dumps({
+            "spec_rounds": st.spec_rounds,
+            "spec_draft_steps": st.spec_draft_steps,
+            "spec_verify_steps": st.spec_verify_steps,
+            "spec_drafted": st.spec_drafted,
+            "spec_accepted": st.spec_accepted,
+            "spec_emitted": st.spec_emitted,
+            "acceptance_rate": rate}, sort_keys=True))
     return results
 
 

@@ -378,23 +378,46 @@ def attention_init(gen: torch.Generator, cfg, dtype: torch.dtype,
     return p
 
 
+def per_position(fn, *xs: torch.Tensor) -> torch.Tensor:
+    """``fn`` applied to each window position of ``xs`` ([B, S, ...]) as
+    its own contiguous [B, 1, ...] tensors — the shape and layout a decode
+    step gives it — with the results concatenated on axis 1.  A row's bits
+    then never depend on how many rows share the call: a reduction over
+    more rows may take another split (the card's launch configuration
+    follows the output count), and an elementwise transcendental another
+    code path (a vector loop's scalar tail on the CPU)."""
+    s = xs[0].shape[1]
+    if s == 1:
+        return fn(*xs)
+    return torch.cat([fn(*(x[:, j:j + 1].contiguous() for x in xs))
+                      for j in range(s)], dim=1)
+
+
 def attention_apply(params: Dict[str, Any], x: torch.Tensor, rt: Runtime,
                     cfg, name: str, *, positions: Optional[torch.Tensor] = None,
                     cache: Optional[KVCache] = None, cache_start=None,
                     seq_lengths: Optional[torch.Tensor] = None,
-                    active: Optional[torch.Tensor] = None):
+                    active: Optional[torch.Tensor] = None,
+                    verify_window: bool = False):
     """GQA attention with RoPE (+ optional qk_norm).  With ``cache``: S > 1
     prefills the cache from position 0 (``seq_lengths`` [B] are the true
     token counts of right-padded prompts); S == 1 appends one token at
     each slot's own fill point, ``active`` [B] masking the writes.
-    Returns (out, cache)."""
+
+    ``verify_window`` (the speculative verify): S > 1 tokens append at each
+    slot's own fill point.  q/k/v/o run batched over the window (B*S rows;
+    per-row quantization and exact integer sums make each row equal to a
+    decode step's), while qk_norm, RoPE and the core replay one decode
+    step per position (``append`` + ``decode_attention`` on [B, 1] slices),
+    so position j's output and KV write are bit-identical to the j-th
+    sequential decode step.  Returns (out, cache)."""
     b, s, _ = x.shape
     h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if positions is None:
         if cache_start is not None:
             base = torch.as_tensor(cache_start, dtype=torch.int32,
                                    device=x.device).reshape(-1, 1)
-        elif cache is not None and s == 1:
+        elif cache is not None and (s == 1 or verify_window):
             base = cache.length[:, None]
         else:
             base = torch.zeros((1, 1), dtype=torch.int32, device=x.device)
@@ -408,6 +431,18 @@ def attention_apply(params: Dict[str, Any], x: torch.Tensor, rt: Runtime,
                act_quants=acts).reshape(b, s, kvh, dh)
     v = linear(params["v_proj"], x, rt, f"{name}.v_proj",
                act_quants=acts).reshape(b, s, kvh, dh)
+    if verify_window and cache is not None and s > 1:
+        def step(q_t, k_t, v_t, pos_t):
+            if cfg.qk_norm:
+                q_t = qk_headnorm(params["q_norm"], q_t)
+                k_t = qk_headnorm(params["k_norm"], k_t)
+            q_t = rope(q_t, pos_t, cfg.rope_theta)
+            cache.append(rope(k_t, pos_t, cfg.rope_theta), v_t,
+                         active=active)
+            return decode_attention(q_t, cache)
+        out = per_position(step, q, k, v, positions.contiguous())
+        out = out.reshape(b, s, h * dh)
+        return linear(params["o_proj"], out, rt, f"{name}.o_proj"), cache
     if cfg.qk_norm:
         q = qk_headnorm(params["q_norm"], q)
         k = qk_headnorm(params["k_norm"], k)
@@ -439,11 +474,22 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def mlp_apply(params: Dict[str, Any], x: torch.Tensor, rt: Runtime,
-              name: str) -> torch.Tensor:
+              name: str, *, verify_window: bool = False) -> torch.Tensor:
+    """SwiGLU MLP.  ``verify_window``: the activation runs per window
+    position (:func:`per_position`), the projections batched."""
     acts: Dict[Any, Any] = {}
     gate = linear(params["gate_proj"], x, rt, f"{name}.gate_proj",
                   act_quants=acts)
     up = linear(params["up_proj"], x, rt, f"{name}.up_proj", act_quants=acts)
-    gf = gate.to(torch.float32)
-    hidden = (gf * torch.sigmoid(gf)).to(x.dtype) * up
+    if verify_window:
+        hidden = per_position(lambda g, u: _swiglu(g, u, x.dtype), gate, up)
+    else:
+        hidden = _swiglu(gate, up, x.dtype)
     return linear(params["down_proj"], hidden, rt, f"{name}.down_proj")
+
+
+def _swiglu(gate: torch.Tensor, up: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """silu(gate) in f32, cast to ``dtype``, times ``up``."""
+    gf = gate.to(torch.float32)
+    return (gf * torch.sigmoid(gf)).to(dtype) * up

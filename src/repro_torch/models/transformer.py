@@ -31,7 +31,7 @@ class LM:
         if any(m != "attn" or ff != "mlp" for m, ff in self.pattern):
             raise NotImplementedError(
                 f"{cfg.name}: only attention + MLP layers are ported; SSM, "
-                "hybrid and MoE layers are ROADMAP Queue 1 item 9")
+                "hybrid and MoE layers are ROADMAP Queue 1 item 8")
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator, *, device=None,
@@ -72,29 +72,42 @@ class LM:
         return params["embed"]["emb"][tokens.to(torch.int64)]
 
     def _head(self, params: Dict[str, Any], x: torch.Tensor,
-              rt: layers.Runtime) -> torch.Tensor:
-        x = layers.rmsnorm(params["final_norm"], x)
+              rt: layers.Runtime, verify_window: bool = False
+              ) -> torch.Tensor:
+        x = self._norm(params["final_norm"], x, verify_window)
         if self.cfg.tie_embeddings:
             return torch.matmul(x, params["embed"]["emb"].T.to(x.dtype))
         return layers.linear(params["lm_head"], x, rt, "lm_head")
 
+    @staticmethod
+    def _norm(g: Dict[str, torch.Tensor], x: torch.Tensor,
+              verify_window: bool) -> torch.Tensor:
+        """rmsnorm; per window position under ``verify_window`` (see
+        ``layers.per_position``)."""
+        if verify_window:
+            return layers.per_position(lambda t: layers.rmsnorm(g, t), x)
+        return layers.rmsnorm(g, x)
+
     def _stack(self, params: Dict[str, Any], x: torch.Tensor,
                rt: layers.Runtime, caches: Optional[List[Dict[str, Any]]] = None,
                seq_lengths: Optional[torch.Tensor] = None,
-               active: Optional[torch.Tensor] = None) -> torch.Tensor:
+               active: Optional[torch.Tensor] = None,
+               verify_window: bool = False) -> torch.Tensor:
         cfg = self.cfg
         for li, period in enumerate(params["layers"]):
             for j, _ in enumerate(self.pattern):
                 blk = period[f"pos{j}"]
                 cache = None if caches is None else caches[li][f"pos{j}"]
-                h = layers.rmsnorm(blk["mixer_norm"], x)
+                h = self._norm(blk["mixer_norm"], x, verify_window)
                 out, _ = layers.attention_apply(
                     blk["attn"], h, rt, cfg, f"layers.pos{j}.attn",
-                    cache=cache, seq_lengths=seq_lengths, active=active)
+                    cache=cache, seq_lengths=seq_lengths, active=active,
+                    verify_window=verify_window)
                 x = x + out
-                h2 = layers.rmsnorm(blk["ff_norm"], x)
+                h2 = self._norm(blk["ff_norm"], x, verify_window)
                 x = x + layers.mlp_apply(blk["mlp"], h2, rt,
-                                         f"layers.pos{j}.mlp")
+                                         f"layers.pos{j}.mlp",
+                                         verify_window=verify_window)
         return x
 
     # ---------------------------------------------------------------- public
@@ -108,13 +121,20 @@ class LM:
                    kv_bits: Optional[int] = None,
                    device=None) -> List[Dict[str, Any]]:
         """One ``{"pos<j>": KVCache}`` dict per layer; ``kv_bits`` None
-        (bf16) or 8 (int8)."""
+        (bf16) or 8 (int8).  Every tensor starts at zero, scales included,
+        as the reference's arena does."""
         cfg, dev = self.cfg, resolve_device(device)
-        return [{f"pos{j}": layers.KVCache.create(
-                    batch, max_len, cfg.num_kv_heads, cfg.head_dim,
-                    dtype=cfg.dtype, kv_bits=kv_bits, device=dev)
-                 for j, _ in enumerate(self.pattern)}
-                for _ in range(cfg.n_periods)]
+        caches = [{f"pos{j}": layers.KVCache.create(
+                      batch, max_len, cfg.num_kv_heads, cfg.head_dim,
+                      dtype=cfg.dtype, kv_bits=kv_bits, device=dev)
+                   for j, _ in enumerate(self.pattern)}
+                  for _ in range(cfg.n_periods)]
+        for layer in caches:
+            for c in layer.values():
+                for t in (c.k_scale, c.v_scale):
+                    if t is not None:
+                        t.zero_()
+        return caches
 
     def prefill(self, params: Dict[str, Any], rt: layers.Runtime,
                 caches: List[Dict[str, Any]], tokens: torch.Tensor,
@@ -142,3 +162,20 @@ class LM:
         x = self._stack(params, self._embed(params, tokens), rt,
                         caches=caches, active=active)
         return self._head(params, x, rt), caches
+
+    def verify_step(self, params: Dict[str, Any], rt: layers.Runtime,
+                    caches: List[Dict[str, Any]], tokens: torch.Tensor,
+                    active: Optional[torch.Tensor] = None):
+        """Speculative verify: a teacher-forced decode of the [B, W] window
+        ``tokens`` at each active slot's own fill point, in ONE forward
+        whose projections and LM head run over all B*W rows, and whose
+        position-j logits and KV writes are bit-identical to the j-th of W
+        sequential :meth:`decode_step` calls (see
+        ``layers.attention_apply(verify_window=True)``).  ``active`` [B]
+        masks every cache write.  The caches come back appended by W, in
+        place; the engine rolls rejected positions back by a length
+        truncation (``serve.slots.truncate_kv_lengths``).
+        Returns (logits [B, W, V], caches)."""
+        x = self._stack(params, self._embed(params, tokens), rt,
+                        caches=caches, active=active, verify_window=True)
+        return self._head(params, x, rt, verify_window=True), caches

@@ -1,7 +1,7 @@
 """Slot-based continuous-batching serving engine (port of
 ``repro.serve.engine``: ``prepare_params``, ``PREPARE_CALLS`` and
 ``ServeEngine`` with per-slot bucketed prefill, the decode-chunk loop, the
-group-layout memo and greedy selection).
+group-layout memo, seeded sampling and self-speculative rounds).
 
 * **Weight preload** — at construction the float params are converted ONCE
   into ``QuantizedWeight`` planes (``prepare_params``); with a
@@ -13,14 +13,24 @@ group-layout memo and greedy selection).
   decode chunk derives a ``(tier, rows)`` group layout from the occupied
   slots' tiers plus a slot permutation, and every projection runs one
   group-switching GEMM over all tiers (``models.layers.linear``).
-* **Decode chunks** — ``decode_chunk`` greedy steps run back to back on
-  the device with an active-slot mask; the host reads the chunk's tokens
-  with ONE copy at its end and only then admits/retires requests.
+* **Decode chunks** — ``decode_chunk`` steps run back to back on the
+  device with an active-slot mask; the host reads the chunk's tokens with
+  ONE copy at its end and only then admits/retires requests.
+* **Sampling** — each slot carries its request's threefry key, a draw
+  counter, temperature and top-k (``spec.sampling``); rows at temperature
+  0 take the raw-logits argmax exactly, and a sampled stream depends only
+  on (seed, draw index), never on the batch.
+* **Self-speculative rounds** — when an occupied slot's request sets
+  ``spec``, the round drafts k tokens with the spec slots re-tagged to
+  their draft tier (a plane prefix of the same store), rolls their draft
+  KV back, verifies the (k+1)-token window in ONE ``LM.verify_step`` at the
+  normal layout and emits the accepted prefix plus a correction token
+  (``spec.speculate``).  Plain slots decode k ordinary steps in the same
+  batches.
 
-Greedy selection is the argmax of the raw logits, which is what the
-reference's sampler does at temperature 0.  Requests that ask for
-sampling or speculation, and engines asked for preemption, a mesh, per-tier
-KV precision (``kv_tiers``) or ``set_tier`` migration, raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Engines asked for preemption, a mesh, per-tier KV precision
+(``kv_tiers``) or ``set_tier`` migration raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 
 The scheduler clock is the number of decode steps executed
 (``ServeEngine.clock``).
@@ -44,6 +54,8 @@ from repro_torch.serve import slots as slots_lib
 from repro_torch.serve.handle import RequestHandle, TokenEvent
 from repro_torch.serve.request import Request
 from repro_torch.serve.scheduler import Scheduler
+from repro_torch.spec import sampling as sampling_lib
+from repro_torch.spec import speculate as spec_lib
 
 __all__ = ["Request", "ServeEngine", "EngineStats", "prepare_params",
            "prepare_tree", "PREPARE_CALLS"]
@@ -56,10 +68,8 @@ GroupLayout = Tuple[Tuple[str, int], ...]
 # quantize + decompose sweep over the params) bumps it.
 PREPARE_CALLS = 0
 
-TODO_SAMPLING = ("sampling and speculative decoding are ROADMAP Queue 1 "
-                 "item 6, not ported yet; the port serves greedy decoding")
-TODO_PREEMPT = "preemption is ROADMAP Queue 1 item 7, not ported yet"
-TODO_MESH = "tensor-parallel serving is ROADMAP Queue 1 item 11, not ported yet"
+TODO_PREEMPT = "preemption is ROADMAP Queue 1 item 6, not ported yet"
+TODO_MESH = "tensor-parallel serving is ROADMAP Queue 1 item 10, not ported yet"
 TODO_KV_TIERS = ("per-tier KV precision (kv_tiers) and set_tier KV migration "
                  "are ROADMAP Queue 1 items 3-4, not ported yet")
 
@@ -93,7 +103,7 @@ def prepare_tree(tree: Any, policy: PrecisionPolicy, *,
                 if val.ndim != 2:
                     raise NotImplementedError(
                         "stacked (expert) weights arrive with MoE, ROADMAP "
-                        "Queue 1 item 9")
+                        "Queue 1 item 8")
                 prec = policy.lookup(_layer_name(path))
                 w = val.to(torch.float32)
                 out[key] = (ops.prepare_superplane(w, signed=prec.w_signed,
@@ -182,7 +192,17 @@ class EngineStats:
     ``tokens_by_tier`` counts each tier's own active slot-steps.
     ``prefill_seconds`` / ``decode_seconds`` are host wall time around
     each prefill / decode chunk; each ends in a host copy of its tokens,
-    which waits for the device."""
+    which waits for the device.
+
+    A speculative round of draft depth k counts k draft-tier steps
+    (``spec_draft_steps``) and ONE verify window (``spec_verify_steps``),
+    all k+1 in ``decode_steps``.  ``spec_drafted`` counts proposed draft
+    tokens, ``spec_accepted`` those the verify accepted and
+    ``spec_emitted`` every token a round emitted, so ``spec_accepted /
+    spec_drafted`` is the acceptance rate and ``spec_verify_steps /
+    spec_emitted`` the verify steps per emitted token.  The identity
+    ``decode_slot_steps + decode_idle_slot_steps == decode_steps *
+    max_batch`` holds through speculative rounds."""
 
     prefills: int = 0
     prefill_tokens: int = 0
@@ -191,6 +211,12 @@ class EngineStats:
     decode_slot_steps: int = 0
     decode_idle_slot_steps: int = 0
     mixed_tier_chunks: int = 0
+    spec_rounds: int = 0
+    spec_draft_steps: int = 0
+    spec_verify_steps: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_emitted: int = 0
     layout_cache_hits: int = 0
     layout_cache_misses: int = 0
     prefill_seconds: float = 0.0
@@ -245,6 +271,15 @@ class ServeEngine:
         self._tok: npt.NDArray[np.int32] = np.zeros((max_batch,), np.int32)
         self._remaining: npt.NDArray[np.int32] = np.zeros((max_batch,),
                                                           np.int32)
+        # Host-mirrored per-slot sampling state: raw request keys, draw
+        # counters, temperature and top-k.  Greedy slots keep temperature
+        # 0 and never advance their counter.
+        self._key: npt.NDArray[np.uint32] = np.zeros((max_batch, 2),
+                                                     np.uint32)
+        self._draws: npt.NDArray[np.int32] = np.zeros((max_batch,), np.int32)
+        self._temp: npt.NDArray[np.float32] = np.zeros((max_batch,),
+                                                       np.float32)
+        self._topk: npt.NDArray[np.int32] = np.zeros((max_batch,), np.int32)
 
     # ------------------------------------------------------------------ clock
     @property
@@ -262,8 +297,6 @@ class ServeEngine:
         """Queue one request; returns its streaming :class:`RequestHandle`.
         On a tiered engine the queued copy carries a concrete tier name."""
         _validate_request(request, self.max_len, self._seen_uids)
-        if request.sampling is not None or request.spec is not None:
-            raise NotImplementedError(TODO_SAMPLING)
         if self.schedule is None:
             if request.tier is not None:
                 raise ValueError(
@@ -278,6 +311,20 @@ class ServeEngine:
                     f"engine serves {sorted(self.schedule.tiers)}")
             request = dataclasses.replace(
                 request, tier=request.tier or self.schedule.default_tier)
+        if request.sampling is not None:
+            request.sampling.validate()
+        if request.spec is not None:
+            request.spec.validate()
+            if self.schedule is None:
+                raise ValueError(
+                    f"request {request.uid}: speculative decoding needs an "
+                    "engine with a PrecisionSchedule (the draft tier is a "
+                    "plane prefix of the superplane store)")
+            if request.spec.draft_tier not in self.schedule.tiers:
+                raise ValueError(
+                    f"request {request.uid}: unknown draft tier "
+                    f"{request.spec.draft_tier!r}; engine serves "
+                    f"{sorted(self.schedule.tiers)}")
         self._seen_uids.add(request.uid)
         handle = RequestHandle(request, self, submitted_at=self.clock)
         self.handles[request.uid] = handle
@@ -301,21 +348,60 @@ class ServeEngine:
         padded[0, :plen] = prompt
         return padded, plen
 
-    def _emit_token(self, state: Any, token: int,
-                    tier: Optional[str]) -> TokenEvent:
-        """Record one emitted token on slot state + handle."""
+    def _emit_token(self, state: Any, token: int, tier: Optional[str],
+                    speculative: bool = False) -> TokenEvent:
+        """Record one emitted token on slot state + handle.  ``speculative``
+        marks tokens of a speculative round (accepted drafts and
+        corrections, all verified at ``tier``)."""
         index = len(state.tokens)
         state.emit(token)
+        sp = state.request.sampling
         event = TokenEvent(uid=state.uid, token=token, index=index,
-                           tier=tier, final=state.done)
+                           tier=tier, final=state.done,
+                           sampled=sp is not None and sp.temperature > 0.0,
+                           speculative=speculative)
         self.handles[state.uid]._push(event, self.clock)
         return event
+
+    def _load_sampling_state(self, slot: int, req: Request) -> None:
+        """Load one slot's sampling state from its request at admission:
+        the raw request key, draw counter 0, temperature and top-k.  Greedy
+        requests keep the all-zero state and never consume randomness."""
+        sp = req.sampling
+        self._key[slot] = sampling_lib.request_key(sp.seed if sp else 0)
+        self._temp[slot] = np.float32(sp.temperature if sp else 0.0)
+        self._topk[slot] = sp.top_k if sp else 0
+        self._draws[slot] = 0
+
+    def _sampling_args(self, slots: Any = slice(None)
+                       ) -> Tuple[torch.Tensor, ...]:
+        """The sampling state of ``slots`` on the device: (keys int64
+        [B, 2], draws int32 [B], temperature f32 [B], top-k int32 [B])."""
+        dev = self.device
+        return (torch.from_numpy(self._key[slots].astype(np.int64)).to(dev),
+                torch.from_numpy(self._draws[slots]).to(dev),
+                torch.from_numpy(self._temp[slots]).to(dev),
+                torch.from_numpy(self._topk[slots]).to(dev))
+
+    @staticmethod
+    def _select(logits: torch.Tensor, keys: torch.Tensor, draws: torch.Tensor,
+                temp: torch.Tensor, topk: torch.Tensor, sampled: bool,
+                active: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``sample_tokens`` over logits [B, V]; ``sampled`` False (no row
+        at temperature > 0, known on the host) takes the raw-logits argmax
+        alone, which is what ``sample_tokens`` returns for such a batch."""
+        if not sampled:
+            return torch.argmax(logits, dim=-1).to(torch.int32), draws
+        return sampling_lib.sample_tokens(logits, keys, draws, temp, topk,
+                                          active=active)
 
     @torch.inference_mode()
     def _prefill_slot(self, slot: int, padded: npt.NDArray[np.int32],
                       plen: int, tier: Optional[str]) -> int:
         """Reset one slot, prefill its right-padded prompt through a view of
-        the arena (written in place), return the first token (greedy)."""
+        the arena (written in place), return the first token: draw event 0
+        of the slot's sampling state."""
         caches = slots_lib.slot_reset(self.arena.caches, slot)
         sub = slots_lib.slot_view(caches, slot)
         tokens = torch.from_numpy(padded).to(self.device)
@@ -323,7 +409,10 @@ class ServeEngine:
         logits, _ = self.model.prefill(self.params, self.rt.for_tier(tier),
                                        sub, tokens=tokens,
                                        seq_lengths=lengths)
-        return int(torch.argmax(logits[0, -1]))
+        tok, _ = self._select(logits[:, -1],
+                              *self._sampling_args(slice(slot, slot + 1)),
+                              sampled=bool(self._temp[slot] > 0.0))
+        return int(tok[0])
 
     def _admit_free_slots(self) -> List[TokenEvent]:
         """Fill free slots from the waiting queue and prefill each admitted
@@ -334,12 +423,16 @@ class ServeEngine:
             if req is None:
                 break
             padded, plen = self._bucket_pad(np.asarray(req.prompt))
+            self._load_sampling_state(slot, req)
             t0 = time.perf_counter()
             first = self._prefill_slot(slot, padded, plen, req.tier)
             self.stats.prefill_seconds += time.perf_counter() - t0
             self.arena.tiers[slot] = req.tier
             self.stats.prefills += 1
             self.stats.prefill_tokens += plen
+            # The first token was draw event 0 (sampled rows only).
+            if self._temp[slot] > 0.0:
+                self._draws[slot] = 1
             state = self.scheduler.slots[slot]
             assert state is not None
             self.handles[req.uid]._mark_admitted(slot, self.clock)
@@ -353,15 +446,18 @@ class ServeEngine:
         for slot in self.scheduler.release_done():
             self.arena.tiers[slot] = None
 
-    def _group_layout(self) -> Tuple[GroupLayout, npt.NDArray[np.int64]]:
+    def _group_layout(self, tiers: Optional[Sequence[Optional[str]]] = None
+                      ) -> Tuple[GroupLayout, npt.NDArray[np.int64]]:
         """The per-step mixed-tier layout from the slot tier tags:
         ``(groups, perm)`` with groups in schedule tier order (free slots
         ride in the default tier's group; their lanes are masked) and
-        ``perm`` the slot order realizing it.  Memoized on the slot-tier
-        vector (``layout_cache_hits`` / ``layout_cache_misses``)."""
+        ``perm`` the slot order realizing it.  ``tiers`` overrides the
+        arena's tier vector: the speculative draft phase passes a copy with
+        the spec slots re-tagged to their draft tiers.  Memoized on the
+        slot-tier vector (``layout_cache_hits`` / ``layout_cache_misses``)."""
         schedule = self.schedule
         assert schedule is not None
-        cache_key = tuple(self.arena.tiers)
+        cache_key = tuple(self.arena.tiers if tiers is None else tiers)
         cached = self._layout_cache.get(cache_key)
         if cached is not None:
             self.stats.layout_cache_hits += 1
@@ -384,52 +480,66 @@ class ServeEngine:
         self._layout_cache[cache_key] = layout
         return layout
 
+    def _runtime(self, tiers: Optional[Sequence[Optional[str]]] = None
+                 ) -> Runtime:
+        """The decode runtime: the group layout of ``tiers`` (default: the
+        arena's) on a tiered engine, else the engine's runtime."""
+        if self.schedule is None:
+            return self.rt
+        groups, perm = self._group_layout(tiers)
+        return self.rt.for_groups(groups,
+                                  torch.from_numpy(perm).to(self.device))
+
     @torch.inference_mode()
     def _decode_chunk(self, rt: Runtime, n_steps: int
-                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-        """``n_steps`` greedy decode steps with an active-slot mask: a slot
-        whose budget hits zero stops writing its cache THAT step.  Returns
-        host copies (one transfer) of tok [B], remaining [B] and the
-        per-step tokens / actives [n_steps, B]."""
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                 np.ndarray, np.ndarray]:
+        """``n_steps`` decode steps with an active-slot mask: a slot whose
+        budget hits zero stops writing its cache THAT step; inactive rows
+        hold their token and their draw counter.  Returns host copies (one
+        transfer) of tok [B], remaining [B], draws [B] and the per-step
+        tokens / actives [n_steps, B]."""
         dev = self.device
         tok = torch.from_numpy(self._tok).to(dev)
         remaining = torch.from_numpy(self._remaining).to(dev)
+        keys, draws, temp, topk = self._sampling_args()
+        sampled = bool((self._temp > 0.0).any())
         rows = []
         for _ in range(n_steps):
             active = remaining > 0
             logits, _ = self.model.decode_step(
                 self.params, rt, self.arena.caches, tokens=tok[:, None],
                 active=active)
-            nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            nxt, draws = self._select(logits[:, -1], keys, draws, temp, topk,
+                                      sampled, active)
             tok = torch.where(active, nxt, tok)
             remaining = remaining - active.to(torch.int32)
             rows += [tok, active.to(torch.int32)]
-        host = torch.stack(rows + [tok, remaining]).cpu().numpy()
+        host = torch.stack(rows + [tok, remaining, draws]).cpu().numpy()
         toks = host[0:2 * n_steps:2]
         actives = host[1:2 * n_steps:2].astype(bool)
-        return host[-2].copy(), host[-1].copy(), toks, actives
+        return (host[-3].copy(), host[-2].copy(), host[-1].copy(), toks,
+                actives)
 
     def step(self) -> List[TokenEvent]:
         """One scheduling round: admit into free slots, run one decode chunk
-        over the occupied slots, and account its tokens.  Returns every
-        token emitted this round in emission order."""
+        (or one speculative round, when an occupied slot's request sets
+        ``spec``) over the occupied slots, and account its tokens.  Returns
+        every token emitted this round in emission order."""
         events = self._admit_free_slots()
         self._release_done()                       # max_new_tokens == 1 cases
         occupied = self.scheduler.occupied()
         if not occupied:
             return events
+        if any(s.request.spec is not None for _, s in occupied):
+            return self._spec_dispatch(occupied, events)
         # Trim the chunk so a tail of all-finished steps is never run.
         n_steps = int(min(self.decode_chunk,
                           max(s.remaining for _, s in occupied)))
-        if self.schedule is not None:
-            groups, perm = self._group_layout()
-            rt = self.rt.for_groups(groups,
-                                    torch.from_numpy(perm).to(self.device))
-        else:
-            rt = self.rt
+        rt = self._runtime()
         t0 = time.perf_counter()
-        self._tok, self._remaining, toks, actives = self._decode_chunk(
-            rt, n_steps)
+        (self._tok, self._remaining, self._draws, toks,
+         actives) = self._decode_chunk(rt, n_steps)
         self.stats.decode_seconds += time.perf_counter() - t0
         self.stats.decode_chunks += 1
         self.stats.decode_steps += n_steps
@@ -453,6 +563,162 @@ class ServeEngine:
                 if actives[s, slot]:
                     events.append(self._emit_token(state, int(toks[s, slot]),
                                                    etier[slot]))
+        self._release_done()
+        return events
+
+    @torch.inference_mode()
+    def _spec_round(self, k: int, rt_draft: Runtime, rt_verify: Runtime,
+                    spec_mask: torch.Tensor, sampled: bool
+                    ) -> Tuple[np.ndarray, ...]:
+        """One speculative round on the device (the reference's
+        ``spec_round_fn``), the arena written in place.
+
+        Draft: k chained decode steps at ``rt_draft``; spec slots
+        (``spec_mask``) draft without spending budget, plain slots take
+        ordinary decode steps.  Rollback: the spec slots' lengths go back
+        to their pre-draft values (``slots.merge_slots``).  Verify: the
+        window ``[t0, d1..dk]`` through ONE ``verify_step`` at
+        ``rt_verify``, writing spec slots only.  Then acceptance against
+        the verify distributions, ``e = min(m+1, remaining)`` emitted
+        tokens, the rejected positions' lengths rewound and the draw
+        counters of sampled spec slots advanced by ``k + 1``.  Returns host
+        copies of tok, remaining, draws [B], the draft tokens and plain
+        actives [k, B], the emission window [B, k+1], e and m [B]."""
+        dev = self.device
+        caches = self.arena.caches
+        keys, draws, temp, topk = self._sampling_args()
+        tok = torch.from_numpy(self._tok).to(dev)
+        remaining = torch.from_numpy(self._remaining).to(dev)
+        tok0 = tok
+        saved = slots_lib.kv_lengths(caches)
+        dtoks, dact, qps = [], [], []
+        for _ in range(k):
+            active = remaining > 0
+            plain_active = active & ~spec_mask
+            logits, _ = self.model.decode_step(
+                self.params, rt_draft, caches, tokens=tok[:, None],
+                active=active)
+            row = logits[:, -1]
+            qps.append(self._probs(row, temp, topk, sampled))
+            nxt, draws = self._select(row, keys, draws, temp, topk, sampled,
+                                      active)
+            tok = torch.where(active, nxt, tok)
+            # Spec slots spend their budget at emission (verify) time.
+            remaining = remaining - plain_active.to(torch.int32)
+            dtoks.append(tok)
+            dact.append(plain_active)
+        slots_lib.merge_slots(caches, saved, spec_mask)
+        drafts = torch.stack(dtoks, dim=1)                     # [B, k]
+        window = torch.cat([tok0[:, None], drafts], dim=1)     # [B, k+1]
+        vlogits, _ = self.model.verify_step(self.params, rt_verify, caches,
+                                            tokens=window, active=spec_mask)
+        batch, width = window.shape
+        p = self._probs(vlogits.reshape(batch * width, -1),
+                        temp.repeat_interleave(width),
+                        topk.repeat_interleave(width),
+                        sampled).reshape(batch, width, -1)
+        q = torch.stack(qps, dim=1)                            # [B, k, V]
+        m = spec_lib.accept_counts(drafts, q, p, keys, draws)
+        corr = spec_lib.correction_tokens(q, p, m, keys, draws)
+        emit = spec_lib.emission_window(drafts, corr, m)
+        e = torch.where(spec_mask, torch.minimum(m + 1, remaining),
+                        torch.zeros_like(m))
+        last_idx = torch.clamp(e - 1, 0, width - 1)
+        slots_lib.truncate_kv_lengths(caches, width - e, spec_mask)
+        slots_lib.select_verify_step(caches, last_idx)
+        last = emit.gather(1, last_idx[:, None].to(torch.int64))[:, 0]
+        tok = torch.where(spec_mask, last, tok)
+        remaining = remaining - e
+        spec_sampled = spec_mask & (temp > 0.0)
+        draws = draws + torch.where(
+            spec_sampled, spec_lib.accept_draw_events(k), 0).to(draws.dtype)
+        host = [t.cpu().numpy() for t in (
+            torch.stack([tok, remaining, draws, e, m]),
+            torch.stack(dtoks + [d.to(torch.int32) for d in dact]), emit)]
+        vec, draft_rows, emit_h = host
+        return (vec[0].copy(), vec[1].copy(), vec[2].copy(), draft_rows[:k],
+                draft_rows[k:].astype(bool), emit_h, vec[3], vec[4])
+
+    @staticmethod
+    def _probs(logits: torch.Tensor, temp: torch.Tensor, topk: torch.Tensor,
+               sampled: bool) -> torch.Tensor:
+        """``sampling_probs``; with no sampled row in the batch (known on
+        the host) every row is the argmax point mass it returns."""
+        if sampled:
+            return sampling_lib.sampling_probs(logits, temp, topk)
+        return torch.nn.functional.one_hot(
+            torch.argmax(logits, dim=-1), logits.shape[-1]).to(torch.float32)
+
+    def _spec_dispatch(self, occupied: List[Tuple[int, Any]],
+                       events: List[TokenEvent]) -> List[TokenEvent]:
+        """One speculative scheduling round: derive the draft layout (spec
+        slots re-tagged to their draft tiers: no weight is prepared again,
+        the draft model is a plane prefix of the store), run the round,
+        then emit — plain slots' draft-phase tokens step-major first, then
+        each spec slot's accepted window with ``speculative=True``.  The
+        clock advances k+1 steps.  Slots with different ``k`` share the
+        round at the largest."""
+        spec_states = [(slot, s) for slot, s in occupied
+                       if s.request.spec is not None]
+        k = max(s.request.spec.k for _, s in spec_states)
+        width = k + 1
+        spec_np = np.zeros((self.max_batch,), bool)
+        draft_tiers = list(self.arena.tiers)
+        for slot, s in spec_states:
+            spec_np[slot] = True
+            draft_tiers[slot] = s.request.spec.draft_tier
+        rt_draft = self._runtime(draft_tiers)
+        rt_verify = self._runtime()
+        sampled = bool((self._temp > 0.0).any())
+        t0 = time.perf_counter()
+        (self._tok, self._remaining, self._draws, dtoks, dact, win, e,
+         m) = self._spec_round(k, rt_draft, rt_verify,
+                               torch.from_numpy(spec_np).to(self.device),
+                               sampled)
+        self.stats.decode_seconds += time.perf_counter() - t0
+        n_spec = len(spec_states)
+        st = self.stats
+        st.decode_chunks += 1
+        st.decode_steps += width
+        st.spec_rounds += 1
+        st.spec_draft_steps += k
+        st.spec_verify_steps += 1
+        st.spec_drafted += k * n_spec
+        st.spec_accepted += int(np.minimum(m[spec_np], e[spec_np]).sum())
+        st.spec_emitted += int(e[spec_np].sum())
+        # Spec slots are busy all k+1 steps, plain slots their active
+        # draft steps.
+        busy = int(dact.sum()) + width * n_spec
+        st.decode_slot_steps += busy
+        st.decode_idle_slot_steps += width * self.max_batch - busy
+        by_tier = st.decode_steps_by_tier
+        draft_occ = {draft_tiers[slot] for slot, _ in occupied}
+        verify_occ = {self.arena.tiers[slot] for slot, _ in occupied}
+        for t in draft_occ:
+            assert t is not None
+            by_tier[t] = by_tier.get(t, 0) + k
+        for t in verify_occ:
+            assert t is not None
+            by_tier[t] = by_tier.get(t, 0) + 1
+        st.mixed_tier_chunks += len(draft_occ | verify_occ) > 1
+        tk = st.tokens_by_tier
+        for slot, _ in occupied:
+            t = self.arena.tiers[slot]
+            assert t is not None
+            n = int(dact[:, slot].sum()) + (int(e[slot]) if spec_np[slot]
+                                            else 0)
+            if n:
+                tk[t] = tk.get(t, 0) + n
+        etier = {slot: self.arena.tiers[slot] for slot, _ in occupied}
+        for s_i in range(k):
+            for slot, state in occupied:
+                if dact[s_i, slot]:
+                    events.append(self._emit_token(
+                        state, int(dtoks[s_i, slot]), etier[slot]))
+        for slot, state in spec_states:
+            for j in range(int(e[slot])):
+                events.append(self._emit_token(
+                    state, int(win[slot, j]), etier[slot], speculative=True))
         self._release_done()
         return events
 

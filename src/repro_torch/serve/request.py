@@ -2,10 +2,13 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import numpy as np
 import numpy.typing as npt
+
+from repro_torch.spec.sampling import SamplingParams
+from repro_torch.spec.speculate import SpecConfig
 
 
 @dataclasses.dataclass
@@ -16,9 +19,9 @@ class Request:
     ``PrecisionSchedule`` (None = the schedule's default tier; must stay
     None on untiered engines).  ``deadline`` and ``tenant`` are carried for
     SLO-aware admission, which the port does not have yet: its FIFO
-    admission ignores them.  ``sampling`` and ``spec`` mirror the
-    reference's fields; the port's engine serves greedy, non-speculative
-    decoding only and rejects a request that sets either."""
+    admission ignores them.  ``sampling`` selects seeded temperature /
+    top-k sampling (None = greedy); ``spec`` turns on self-speculative
+    decoding at a draft tier of the engine's schedule."""
 
     uid: int
     prompt: npt.NDArray[np.int32]  # [S] int32
@@ -26,5 +29,5 @@ class Request:
     tier: Optional[str] = None
     deadline: Optional[float] = None
     tenant: Optional[str] = None
-    sampling: Optional[Any] = None
-    spec: Optional[Any] = None
+    sampling: Optional[SamplingParams] = None
+    spec: Optional[SpecConfig] = None

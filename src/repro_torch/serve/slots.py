@@ -8,11 +8,23 @@ of the arena, so a prefill through the view writes the arena in place;
 ``slot_write`` copies a batch-1 cache into a slot and ``slot_reset`` zeroes
 one slot's state, lengths included.  The host-side ``SlotArena.tiers``
 vector records which precision tier holds each slot.
+
+Speculative rollback.  The reference merges the whole pre-draft arena back
+into the speculative slots (``merge_slots``).  Here the arena is written in
+place and no copy of it is made: :func:`kv_lengths` keeps the lengths
+before the draft phase and :func:`merge_slots` restores them for the
+speculative slots only.  The draft's K/V writes at ``[len, len+k)`` stay
+behind, but the verify window rewrites every position of ``[len, len+k]``
+the draft wrote, so after the verify the arena equals the reference's,
+lanes past each length included.  :func:`truncate_kv_lengths` then rewinds
+the rejected positions.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, List, Optional
+
+import torch
 
 from repro_torch.models.layers import KVCache
 
@@ -45,6 +57,50 @@ def slot_reset(caches: Caches, slot: int) -> Caches:
         for c in layer.values():
             for t in _tensors(c.slot(slot)):
                 t.zero_()
+    return caches
+
+
+def kv_lengths(caches: Caches) -> List[torch.Tensor]:
+    """A copy of every cache's per-slot lengths (the state
+    :func:`merge_slots` restores)."""
+    return [c.length.clone() for layer in caches for c in layer.values()]
+
+
+def merge_slots(caches: Caches, original_lengths: List[torch.Tensor],
+                keep_original: torch.Tensor) -> Caches:
+    """Draft discard, in place: slots where ``keep_original[b]`` get back
+    the lengths of ``original_lengths`` (from :func:`kv_lengths`); the
+    other slots keep their progress."""
+    cs = [c for layer in caches for c in layer.values()]
+    for c, orig in zip(cs, original_lengths, strict=True):
+        c.length.copy_(torch.where(keep_original, orig, c.length))
+    return caches
+
+
+def truncate_kv_lengths(caches: Caches, rollback: torch.Tensor,
+                        mask: torch.Tensor) -> Caches:
+    """Shorten slot ``b``'s fill point by ``rollback[b]`` where ``mask[b]``
+    (never below 0), in place.  The K/V rows stay: entries past a length
+    are invisible to ``decode_attention`` and overwritten by the next
+    appends, so a length rewind IS the rollback of rejected positions."""
+    for layer in caches:
+        for c in layer.values():
+            delta = torch.where(mask, rollback, 0).to(c.length.dtype)
+            c.length.copy_(torch.clamp_min(c.length - delta, 0))
+    return caches
+
+
+def select_verify_step(caches: Caches, step_index: torch.Tensor) -> Caches:
+    """Collapse per-window-step cache snapshots to one step per slot: the
+    identity on KV caches (their rollback is the length truncation).  SSM
+    caches, which keep one snapshot per window step, are not ported."""
+    del step_index
+    for layer in caches:
+        for c in layer.values():
+            if not isinstance(c, KVCache):
+                raise NotImplementedError(
+                    "SSM cache rollback arrives with the SSM layers, ROADMAP "
+                    "Queue 1 item 8")
     return caches
 
 

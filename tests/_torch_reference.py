@@ -24,13 +24,15 @@ from repro.configs import reduced_config as jreduced
 from repro.models.transformer import LM as JLM
 from repro_torch.convert import convert_params
 from repro_torch.serve.request import Request
+from repro_torch.spec import SamplingParams, SpecConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TIERS = {"8/8": (8, 8), "4/4": (4, 4), "2/2": (2, 2)}
 ENGINE_KW = dict(max_batch=4, max_len=64, decode_chunk=8)
 
-# Runs the reference engine; prints the streams and a checksum of the
-# weights it served (the parent makes the same weights from the same key).
+# Runs the reference engine once per run of requests (a fresh engine each);
+# prints the streams of every run and a checksum of the weights it served
+# (the parent makes the same weights from the same key).
 REFERENCE = r"""
 import hashlib, json, sys
 import jax, numpy as np
@@ -39,6 +41,7 @@ from repro.core.policy import uniform_schedule
 from repro.models.layers import Runtime
 from repro.models.transformer import LM
 from repro.serve.engine import Request, ServeEngine
+from repro.spec import SamplingParams, SpecConfig
 spec = json.loads(sys.argv[1])
 model = LM(reduced_config("qwen3-8b"))
 params = model.init(jax.random.PRNGKey(0))
@@ -48,13 +51,22 @@ for leaf in jax.tree.leaves(params):
 sched = uniform_schedule({t: tuple(b) for t, b in spec["tiers"].items()},
                          backend="decomposed")
 rt = Runtime(policy=sched.policy_for(), mode="serve", schedule=sched)
-eng = ServeEngine(model, params, rt, packed=spec["packed"], **spec["engine"])
-reqs = [Request(uid=r["uid"], prompt=np.asarray(r["prompt"], np.int32),
-                max_new_tokens=r["max_new"], tier=r["tier"])
-        for r in spec["requests"]]
-out = eng.run(reqs)
-print(json.dumps({"checksum": h.hexdigest(),
-                  "streams": {str(k): v for k, v in out.items()}}))
+runs = []
+for run in spec["runs"]:
+    kw = dict(spec["engine"])
+    if isinstance(run, dict):
+        kw.update(run["engine"])
+        run = run["requests"]
+    eng = ServeEngine(model, params, rt, packed=spec["packed"], **kw)
+    reqs = [Request(uid=r["uid"], prompt=np.asarray(r["prompt"], np.int32),
+                    max_new_tokens=r["max_new"], tier=r["tier"],
+                    sampling=SamplingParams(*r["sampling"])
+                    if r.get("sampling") else None,
+                    spec=SpecConfig(*r["spec"]) if r.get("spec") else None)
+            for r in run]
+    out = eng.run(reqs)
+    runs.append({str(k): v for k, v in out.items()})
+print(json.dumps({"checksum": h.hexdigest(), "runs": runs}))
 """
 
 
@@ -69,19 +81,31 @@ def reference_streams(engine_kw, specs, *, packed=False):
     """Greedy streams {uid: tokens} of the reference's mixed-tier
     ServeEngine (``TIERS``, decomposed backend) on reduced qwen3-8b with
     ``PRNGKey(0)`` weights, and the checksum of those weights."""
+    runs, checksum = reference_runs(engine_kw, [specs], packed=packed)
+    return runs[0], checksum
+
+
+def reference_runs(engine_kw, runs, *, packed=False):
+    """As :func:`reference_streams`, for several runs of request specs in
+    one subprocess (a fresh engine per run).  A spec may carry
+    ``"sampling": [temperature, top_k, seed]`` and ``"spec": [draft_tier,
+    k]``; a run given as ``{"engine": kw, "requests": specs}`` overrides
+    ``engine_kw`` with ``kw``.  Returns ([{uid: tokens} per run], weights
+    checksum)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") +
                         " --xla_allow_excess_precision=false").strip()
-    spec = {"engine": engine_kw, "requests": specs, "tiers": TIERS,
+    spec = {"engine": engine_kw, "runs": runs, "tiers": TIERS,
             "packed": packed}
     proc = subprocess.run([sys.executable, "-c", REFERENCE, json.dumps(spec)],
                           capture_output=True, text=True, env=env,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     ref = json.loads(proc.stdout.strip().splitlines()[-1])
-    return {int(k): v for k, v in ref["streams"].items()}, ref["checksum"]
+    return ([{int(k): v for k, v in run.items()} for run in ref["runs"]],
+            ref["checksum"])
 
 
 def reference_weights():
@@ -103,7 +127,12 @@ def request_specs():
 
 
 def to_requests(specs, tiered=True):
-    """The port's Requests for ``specs`` (tier-less unless ``tiered``)."""
+    """The port's Requests for ``specs`` (tier-less unless ``tiered``),
+    with their ``sampling`` and ``spec`` where a spec sets them."""
     return [Request(uid=s["uid"], prompt=np.asarray(s["prompt"], np.int32),
                     max_new_tokens=s["max_new"],
-                    tier=s["tier"] if tiered else None) for s in specs]
+                    tier=s["tier"] if tiered else None,
+                    sampling=SamplingParams(*s["sampling"])
+                    if s.get("sampling") else None,
+                    spec=SpecConfig(*s["spec"]) if s.get("spec") else None)
+            for s in specs]

@@ -438,3 +438,108 @@ def test_reduced_packed_engine_serves_through_the_kernels(gen, tiered):
     used = ("act_quant", "packed_bitserial_matmul") + \
         (("act_quant_rows", "grouped_dequant_matmul") if tiered else ())
     assert all(_build.LAUNCHES[k] > 0 for k in used), _build.LAUNCHES
+
+
+# ------------------------------------------------ speculative decoding
+SPEC_TIERS = {"8/8": (8, 8), "4/4": (4, 4), "2/2": (2, 2)}
+
+
+def _full_width(gen, packed=False, layers=4):
+    """qwen3-8b at full width, ``layers`` deep, seeded weights prepared
+    layer by layer into the superplane store."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import prepare_tree
+    model = LM(dataclasses.replace(get_config("qwen3-8b"), num_layers=layers))
+    sched = uniform_schedule(SPEC_TIERS, backend="cuda")
+    params = model.init(gen, device="cuda", prepare=lambda tree, prefix:
+                        prepare_tree(tree, sched.prepare_policy(),
+                                     prefix=prefix, superplane=True,
+                                     packed=packed))
+    return model, params
+
+
+def _spec_requests(vocab, spec, sampled):
+    from repro_torch.spec import SamplingParams, SpecConfig
+    rng = np.random.default_rng(1)
+    return [Request(uid=i, prompt=rng.integers(0, vocab, size=int(
+        rng.integers(16, 65))).astype(np.int32), max_new_tokens=12,
+        tier=list(SPEC_TIERS)[i % 3],
+        spec=SpecConfig("2/2", 4) if spec and i % 3 != 2 else None,
+        sampling=SamplingParams(0.8, 40, i) if sampled else None)
+        for i in range(9)]
+
+
+def _tiered(model, params, backend, **kw):
+    sched = uniform_schedule(SPEC_TIERS, backend=backend)
+    return ServeEngine(model, params, Runtime(policy=sched.policy_for(),
+                                              schedule=sched),
+                       **{"max_batch": 8, "max_len": 128, **kw})
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_verify_window_equals_sequential_decode_at_full_width(gen, packed):
+    """At 4096 wide, every verify position's logits and KV writes equal
+    the sequential decode step's bit for bit: no float op in the window
+    rounds by how many rows share it (mixed-tier and one-tier layouts)."""
+    from repro_torch.models.layers import KVCache
+    model, params = _full_width(gen, packed)
+    sched = uniform_schedule(SPEC_TIERS, backend="cuda")
+    rt = Runtime(policy=sched.policy_for(), schedule=sched)
+    rng = np.random.default_rng(3)
+    b, w = 8, 5
+    toks = torch.from_numpy(rng.integers(0, 151936, size=(b, 48))
+                            .astype(np.int32)).cuda()
+    lens = torch.from_numpy(rng.integers(8, 49, size=b).astype(np.int32)
+                            ).cuda()
+    active = torch.tensor([s % 3 != 2 for s in range(b)], device="cuda")
+    for groups, order in (((("8/8", 3), ("4/4", 3), ("2/2", 2)),
+                           [0, 3, 6, 1, 4, 7, 2, 5]),
+                          ((("8/8", 8),), list(range(8)))):
+        caches = model.init_cache(b, 128, device="cuda")
+        logits, _ = model.prefill(params, rt.for_tier("8/8"), caches,
+                                  tokens=toks, seq_lengths=lens)
+        window = torch.cat([torch.argmax(logits[:, -1], -1).to(torch.int32)
+                            [:, None], torch.randint(
+                                0, 151936, (b, w - 1), device="cuda",
+                                generator=gen, dtype=torch.int32)], dim=1)
+        rt_v = rt.for_groups(groups, torch.tensor(order, device="cuda"))
+        seq = [{p: KVCache(*[None if t is None else t.clone() for t in (
+            c.k, c.v, c.k_scale, c.v_scale, c.length)])
+            for p, c in layer.items()} for layer in caches]
+        vlogits, _ = model.verify_step(params, rt_v, caches, tokens=window,
+                                       active=active)
+        for j in range(w):
+            lj, _ = model.decode_step(params, rt_v, seq,
+                                      tokens=window[:, j:j + 1], active=active)
+            assert torch.equal(vlogits[active, j], lj[active, 0]), (groups, j)
+        for la, lb in zip(caches, seq):
+            for x, y in zip(vars(la["pos0"]).values(),
+                            vars(lb["pos0"]).values()):
+                assert x is None or torch.equal(x, y)
+
+
+def test_greedy_speculative_equals_plain_at_4_layers(gen):
+    model, params = _full_width(gen)
+    plain = _tiered(model, params, "cuda").run(
+        _spec_requests(151936, spec=False, sampled=False))
+    eng = _tiered(model, params, "cuda")
+    _build.reset_launches()
+    assert eng.run(_spec_requests(151936, spec=True, sampled=False)) == plain
+    assert eng.stats.spec_rounds > 0
+    assert _build.LAUNCHES["act_quant_rows"] > 0
+    assert _build.LAUNCHES["grouped_dequant_matmul"] > 0
+
+
+def test_sampled_streams_cuda_equal_decomposed(gen):
+    """Sampled requests, speculative and plain mixed: the kernels' run and
+    the plain backend's (which launches nothing) give the same streams."""
+    model, params = _full_width(gen)
+    reqs = _spec_requests(151936, spec=True, sampled=True)
+    outs = []
+    for backend in ("cuda", "decomposed"):
+        _build.reset_launches()
+        outs.append(_tiered(model, params, backend).run(reqs))
+        assert any(_build.LAUNCHES.values()) == (backend == "cuda")
+    assert outs[0] == outs[1]

@@ -23,6 +23,7 @@ from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.handle import RequestStatus
 from repro_torch.serve.request import Request
 from repro_torch.serve.scheduler import Scheduler
+from repro_torch.spec import SamplingParams, SpecConfig
 
 
 @pytest.fixture(scope="module")
@@ -117,17 +118,19 @@ def test_submit_validation_and_unported_features(setup):
                            max_new_tokens=8))
     with pytest.raises(ValueError, match="unknown tier"):
         eng.submit(Request(uid=3, prompt=np.ones((3,), np.int32), tier="3/3"))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # Sampling and speculation are served (tests/test_torch_spec.py); their
+    # parameters are checked at submit.
+    with pytest.raises(ValueError, match="temperature must be >= 0"):
         eng.submit(Request(uid=4, prompt=np.ones((3,), np.int32),
-                           sampling=object()))
-    with pytest.raises(NotImplementedError, match="item 6"):
+                           sampling=SamplingParams(temperature=-1.0)))
+    with pytest.raises(ValueError, match="unknown draft tier"):
         eng.submit(Request(uid=5, prompt=np.ones((3,), np.int32),
-                           spec=object()))
+                           spec=SpecConfig("3/3")))
     with pytest.raises(NotImplementedError, match="set_tier"):
         eng.handles[0].set_tier("2/2")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         eng.preempt(0)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         _tiered_engine(model, params, mesh=object())
     kv = uniform_schedule(TIERS, backend="cuda",
                           kv_tiers={"8/8": None, "4/4": 8, "2/2": 8})
