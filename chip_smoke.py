@@ -26,7 +26,10 @@ Phases, in order (any failure exits non-zero and prints no result line):
             12288, 152064}; K=12288 -> N=4096) and one ragged shape (M=5,
             K=4100, N=1000).  Kernels 3 and 5 also run M in
             {16, 17, 40} at the serving shapes (prefill buckets, a ragged
-            row tile).  The packed GEMM runs every stored width
+            row tile), and with kernel 1 (every width, bf16 and f32, K in
+            {4096, 12288}) at M in {65, 192, 512}, the rows of a
+            ``BatchServeEngine`` prefill (up to 8 prompts of 64): more than
+            one 64-row tile.  The packed GEMM runs every stored width
             2/4/6/8 at every even effective width, signed and unsigned; the
             grouped GEMMs run both layouts (the packed one signed and
             unsigned) with three tier groups, and at M in {1, 3, 8, 16, 17,
@@ -77,16 +80,40 @@ Phases, in order (any failure exits non-zero and prints no result line):
             speculation at max_batch 3 with equal streams, and the verify
             window position by position against sequential decode steps,
             logits and arena bit-equal, for both stores.
-5. fixed    the quickstart form, --w-bits 4 --kv-bits 8 (LSB-first planes,
-            int8 KV), at full width with the depth cut to 4 layers; the
-            ``cuda`` engine's streams must equal the ``decomposed`` one's
-            and the packed ``cuda`` engine's.
+4c. tiers   per-request KV precision on the phase-3 model (full-width
+            qwen3-8b, 36 layers, seed 0, int8 planes, max_batch 8, the
+            same 9 requests), schedule 8/8 4/4 2/2 with ``kv_tiers`` {8/8:
+            bf16, 4/4: 8, 2/2: 4}: ONE mixed byte-lane KV arena.  (a) The
+            mixed run's streams must equal the union of one
+            ``BatchServeEngine(tier=t)`` run per tier on the same store,
+            each at its tier's KV precision; (b) ``mixed_tiers=False`` must
+            give them too, with no mixed chunk and a tier switch; no weight
+            is prepared again; the serialized run and every batch run
+            (one-tier batches) launch kernels 1 and 3 and no other.  Prints decode tokens/s and mean step ms
+            beside phase 3's, the arena bytes beside phase 3's bf16 arena,
+            each kernel's launches and one traced decode chunk (device
+            operations per step, busy share).  Then at 4 layers of the same
+            width: (c) uid 0 (8/8, bf16 KV) moves to 2/2 (int4) and uid 1
+            (4/4, int8) to 8/8 after 4 tokens; the arena must equal
+            ``migrate_kv_tier`` applied on the card to a copy taken before,
+            a fresh engine continuing from that copy must give the same
+            streams, and the migrations' ms (CUDA events) are printed; (a)
+            to (c) replayed on the plain ``decomposed`` backend launch
+            nothing and give equal streams.
+5. fixed    the quickstart form, --w-bits 4 with the int8 KV cache and
+            then the int4 one (--kv-bits 8, 4; LSB-first planes), at full
+            width with the depth cut to 4 layers; for each, the ``cuda``
+            engine's streams must equal the ``decomposed`` one's and the
+            packed ``cuda`` engine's.
 6. times    median CUDA-event time of each kernel at its serving shapes
             (kernels 2 and 4 also at the verify window, M = 40 in the
-            three-tier verify layout),
+            three-tier verify layout; kernels 3 and 5 also at M in {65,
+            192, 512}, P = 4 and 1),
             with a cold L2 cache (as a decode step finds the weights) and
             the call enqueued before the card reaches it (a spin first),
-            beside its bound on this card, its plain version's time and,
+            beside its bound on this card (the GEMMs' operations counted
+            once per weight MAC, x times the weight the planes compose,
+            whatever the plane count), its plain version's time and,
             where one PyTorch call computes the same function, that call's;
             and an empty kernel's time, the launch floor.
 
@@ -131,6 +158,9 @@ PATH_OF = {"act_quant": "mixed", "act_quant_rows": "mixed",
            "packed_bitserial_matmul": "packed", "grouped_matmul": "parity"}
 GEMM_SHAPES = ((4096, 4096), (4096, 1024), (4096, 12288), (4096, 152064),
                (12288, 4096))
+# Rows of a BatchServeEngine prefill (rows x padded prompt): past one
+# 64-row tile, up to 8 x 64.
+PREFILL_ROWS = (65, 192, 512)
 
 
 def log(msg: str) -> None:
@@ -523,6 +553,41 @@ def phase_parity() -> dict:
         del x, planes, packed
         sync()
         torch.cuda.empty_cache()
+    # Kernels 1, 3 and 5 at the row counts of a BatchServeEngine prefill
+    # (rows x padded prompt, up to 8 x 64): more than one 64-row tile.
+    for m in PREFILL_ROWS:
+        for k in (4096, 12288):
+            for dtype in (torch.bfloat16, torch.float32):
+                for bits, signed in AQ_WIDTHS:
+                    xa = _act_rows(m, k, [float((1 << (bits - 1)) - 1 if signed
+                                                else (1 << bits) - 1)],
+                                   signed, gen).to(dtype)
+                    hold("act_quant", aq.act_quant(xa, bits=bits,
+                                                   signed=signed),
+                         ref.act_quant_ref(xa, bits=bits, signed=signed))
+        for k, n in GEMM_SHAPES:
+            x, planes = _inputs(m, k, n, gen)
+            if -(-m // bsm.plan(m, k, n, 4).bm) < 2:
+                raise AssertionError(f"M={m}: one row tile, expected more")
+            for p in (1, 2, 3, 4):
+                for shifts in (decompose.prefix_shifts(p),
+                               tuple(2 * c for c in range(p))):
+                    hold("bitserial_matmul",
+                         bsm.bitserial_matmul(x, planes[:p], shifts),
+                         ref.bitserial_matmul_ref(x, planes[:p], shifts))
+            packed = ops.pack_planes(planes.flip(0), 8)
+            del planes
+            for eff in (2, 4, 6, 8):
+                for signed in (True, False):
+                    hold("packed_bitserial_matmul",
+                         bsm.packed_bitserial_matmul(x, packed, w_bits=8,
+                                                     eff_bits=eff,
+                                                     signed=signed),
+                         ref.packed_bitserial_matmul_ref(x, packed, 8, eff,
+                                                         signed))
+            del x, packed
+            sync()
+            torch.cuda.empty_cache()
     # The grouped GEMMs at every decode batch kind, both layouts.
     for m, k, n in [(m, k, n) for m in (1, 3, 8, 16, 17, 40)
                     for k, n in GEMM_SHAPES]:
@@ -769,11 +834,7 @@ def _profile_chunk(eng, reqs) -> None:
         spans.append((e.time_range.start, e.time_range.end))
         name = _kernel_name(e.name)
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
-    busy_us, end = 0.0, float("-inf")
-    for a, b in sorted(spans):     # the union of the device intervals
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
+    busy_us = _busy_us(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     log("[mixed] profile of one decode chunk: " + json.dumps({
         "steps": seen["steps"], "wall_ms": seen["wall_ms"],
@@ -804,6 +865,16 @@ def _profile_chunk(eng, reqs) -> None:
                              for f, v in own],
         "cum_ms_per_step": [[where(f), v[1] / steps, 1e3 * v[3] / steps]
                             for f, v in cum]}))
+
+
+def _busy_us(spans) -> float:
+    """The length of the union of device intervals (start, end) in µs."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
 
 
 def _check_launches(label: str, launches: dict, used, unused) -> None:
@@ -965,7 +1036,6 @@ def _verify_positions(label: str, model, params, rt, seed: int) -> None:
     rows and the whole arena bit-equal."""
     import numpy as np
     import torch
-    from repro_torch.models.layers import KVCache
     b, w = SPEC_SLOTS, SPEC_K + 1
     rng = np.random.default_rng(seed)
     lens = rng.integers(16, 65, size=b).astype(np.int32)
@@ -991,9 +1061,7 @@ def _verify_positions(label: str, model, params, rt, seed: int) -> None:
                 groups.append([tiers[s], 1])
         rt_v = rt.for_groups(tuple((t, n) for t, n in groups),
                              torch.tensor(order, device="cuda"))
-        seq = [{p: KVCache(*[None if t is None else t.clone() for t in (
-            c.k, c.v, c.k_scale, c.v_scale, c.length)])
-            for p, c in layer.items()} for layer in caches]
+        seq = _clone_caches(caches)
         vlogits, _ = model.verify_step(params, rt_v, caches, tokens=window,
                                        active=active)
         for j in range(w):
@@ -1162,6 +1230,250 @@ def phase_spec(mixed: dict, card: str) -> dict:
     return {**greedy["stats"], "spec": stats, "launches_per_round": launches}
 
 
+# --------------------------------------------------------------- phase 4c
+KV_TIERS = {"8/8": None, "4/4": 8, "2/2": 4}
+
+
+def _arena_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size()
+               for layer in caches for c in layer.values()
+               for t in c.tensors())
+
+
+def _tier_engines(model, params, sched, label: str, kw: dict) -> dict:
+    """On ``model``: the mixed-KV engine's run, the per-tier
+    ``BatchServeEngine`` runs on the same store (one per tier, each at its
+    tier's KV precision) whose union must equal it, and the serialized
+    mode's run, which must equal it too, with no mixed chunk and a tier
+    switch.  No weight is prepared again.  Returns the runs: "mixed",
+    "serialized" and "batch" (tier -> run)."""
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve import engine as engine_mod
+    rt = Runtime(policy=sched.policy_for(), schedule=sched)
+    reqs = _requests(9, model.cfg.vocab_size, 16, list(TIERS), seed=1)
+    calls = engine_mod.PREPARE_CALLS
+    eng = engine_mod.ServeEngine(model, params, rt, **kw)
+    mixed = _serve(eng, reqs, label)
+    if eng.stats.mixed_tier_chunks == 0:
+        raise AssertionError(f"{label}: no decode chunk mixed tiers")
+    mixed["arena_bytes"] = _arena_bytes(eng.arena.caches)
+    del eng
+    batch: dict = {}
+    batch_runs: dict = {}
+    for tier in TIERS:
+        b = engine_mod.BatchServeEngine(
+            model, params, rt, max_batch=kw["max_batch"],
+            max_len=kw["max_len"], tier=tier, device=kw["device"])
+        if b.kv_bits != KV_TIERS[tier]:
+            raise AssertionError(f"{label}: batch engine at {tier} keeps KV "
+                                 f"at {b.kv_bits}")
+        run = _serve(b, [r for r in reqs if r.tier == tier],
+                     f"{label}-batch-{tier}")
+        batch.update(run["tokens"])
+        batch_runs[tier] = run
+        del b
+    _check_same(label, mixed["tokens"], batch,
+                "the per-tier BatchServeEngine runs'")
+    ser = engine_mod.ServeEngine(model, params, rt, mixed_tiers=False, **kw)
+    serial = _serve(ser, reqs, f"{label}-serialized")
+    if ser.stats.mixed_tier_chunks or not ser.stats.tier_switches:
+        raise AssertionError(f"{label}-serialized: {ser.stats.mixed_tier_chunks}"
+                             f" mixed chunks, {ser.stats.tier_switches} tier "
+                             "switches")
+    _check_same(f"{label}-serialized", serial["tokens"], mixed["tokens"],
+                "the mixed-tier run's")
+    if engine_mod.PREPARE_CALLS != calls:
+        raise AssertionError(f"{label}: prepare_params ran after engine "
+                             "construction")
+    return {"mixed": mixed, "serialized": serial, "batch": batch_runs}
+
+
+def _check_one_tier_launches(label: str, runs: dict) -> None:
+    """The serialized run and each per-tier batch run (one-tier batches,
+    prefill at M = rows x the longest prompt) launched kernels 1 and 3 and
+    none of the others."""
+    for name, run in [("serialized", runs["serialized"])] + [
+            (f"batch-{t}", r) for t, r in runs["batch"].items()]:
+        _check_launches(f"{label}-{name}", run["stats"]["launches"],
+                        used=("act_quant", "bitserial_matmul"),
+                        unused=("act_quant_rows", "grouped_dequant_matmul",
+                                "packed_bitserial_matmul", "grouped_matmul"))
+
+
+def _clone_caches(caches):
+    from repro_torch.models.layers import KVCache
+    return [{p: KVCache(*[None if t is None else t.clone() for t in (
+        c.k, c.v, c.k_scale, c.v_scale, c.length, c.kv_bits)], modes=c.modes)
+        for p, c in layer.items()} for layer in caches]
+
+
+# Phase 4c's migrations: (uid, new tier); uid 0 is 8/8 (bf16 KV), uid 1
+# 4/4 (int8).  They move after their first decode chunk of MIGRATE_CHUNK.
+MIGRATIONS = ((0, "2/2"), (1, "8/8"))
+MIGRATE_CHUNK = 3
+
+
+def _migration(label: str, model, params, rt, time_it: bool) -> dict:
+    """At ``model``'s depth: serve the 9 requests with a decode chunk of
+    MIGRATE_CHUNK and, after the first round (4 tokens each), migrate uid 0
+    (8/8, bf16 KV) to 2/2 (int4) and uid 1 (4/4, int8) to 8/8 (bf16).  The
+    arena after the migrations must equal ``migrate_kv_tier`` applied on
+    the card to a copy taken before them, and a fresh engine that replays
+    the first round and takes that copy as its arena must continue with
+    the same streams."""
+    import torch
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve import slots as slots_lib
+    sched = rt.schedule
+    kw = {**MIXED_KW, "decode_chunk": MIGRATE_CHUNK}
+    reqs = _requests(9, model.cfg.vocab_size, 16, list(TIERS), seed=1)
+    sync()
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+
+    def first_round():
+        eng = engine_mod.ServeEngine(model, params, rt, **kw)
+        handles = {r.uid: eng.submit(r) for r in reqs}
+        eng.step()
+        for uid, _ in MIGRATIONS:
+            h = handles[uid]
+            if h.slot is None or len(h.tokens) != 1 + MIGRATE_CHUNK:
+                raise AssertionError(f"{label}: uid {uid} not running with "
+                                     f"{1 + MIGRATE_CHUNK} tokens")
+        return eng, handles
+    eng, handles = first_round()
+    copy = _clone_caches(eng.arena.caches)
+    ms = {}
+    for uid, tier in MIGRATIONS:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        sync()
+        a.record()
+        handles[uid].set_tier(tier)
+        b.record()
+        b.synchronize()
+        ms[f"{uid}:{reqs[uid].tier}->{tier}"] = a.elapsed_time(b)
+    if eng.stats.kv_migrations != len(MIGRATIONS):
+        raise AssertionError(f"{label}: {eng.stats.kv_migrations} KV "
+                             "migrations")
+    for uid, tier in MIGRATIONS:
+        slots_lib.migrate_kv_tier(copy, handles[uid].slot,
+                                  sched.kv_code_for(tier))
+    for la, lb in zip(eng.arena.caches, copy):
+        for p in la:
+            for x, y in zip(la[p].tensors(), lb[p].tensors()):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{label}: migrated arena differs "
+                                         "from migrate_kv_tier on a copy")
+    out = eng.drain()
+    launches = dict(_build.LAUNCHES)
+    # The fresh engine: the same first round, then the copy as its arena.
+    fresh, fh = first_round()
+    for la, lb in zip(fresh.arena.caches, copy):
+        for p in la:
+            for x, y in zip(la[p].tensors(), lb[p].tensors()):
+                x.copy_(y)
+    for uid, tier in MIGRATIONS:
+        fh[uid].request.tier = tier
+        fresh.arena.tiers[fh[uid].slot] = tier
+    _check_same(f"{label}-resumed", fresh.drain(), out,
+                "the migrated engine's continuation")
+    if time_it:
+        log(f"[{label}] migration ms (CUDA events, one set_tier each): "
+            + json.dumps(ms))
+    return {"tokens": out, "migration_ms": ms, "launches": launches}
+
+
+def phase_tiers(mixed: dict, card: str) -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import uniform_schedule
+    from repro_torch.models.layers import Runtime
+    sched = uniform_schedule(TIERS, backend="cuda", kv_tiers=KV_TIERS)
+    plain = uniform_schedule(TIERS, backend="decomposed", kv_tiers=KV_TIERS)
+    cfg, model, params = _build_model(get_config("qwen3-8b").num_layers,
+                                      sched.prepare_policy(),
+                                      superplane=True, seed=0)
+    full = _tier_engines(model, params, sched, "tiers", MIXED_KW)
+    res = full["mixed"]
+    _check_streams("tiers", res["tokens"], _requests(
+        9, cfg.vocab_size, 16, list(TIERS), seed=1), cfg.padded_vocab)
+    _check_launches("tiers", res["stats"]["launches"],
+                    used=[k for k, v in PATH_OF.items() if v == "mixed"],
+                    unused=("packed_bitserial_matmul", "grouped_matmul"))
+    _check_one_tier_launches("tiers", full)
+    bf16_arena = _arena_bytes(model.init_cache(MIXED_KW["max_batch"],
+                                               MIXED_KW["max_len"],
+                                               device="cuda"))
+    st = res["stats"]
+    log("[tiers] " + json.dumps({
+        "decode_tokens_per_s": st["decode_tokens_per_s"],
+        "mixed_decode_tokens_per_s": mixed["decode_tokens_per_s"],
+        "mean_decode_step_ms": st["mean_decode_step_ms"],
+        "mixed_mean_decode_step_ms": mixed["mean_decode_step_ms"],
+        "serialized_mean_decode_step_ms":
+            full["serialized"]["stats"]["mean_decode_step_ms"],
+        "arena_bytes": res["arena_bytes"], "mixed_bf16_arena_bytes":
+            bf16_arena, "launches": st["launches"], "card": card}))
+    _profile_tier_step(model, params, sched)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # At 4 layers: the migration, and (a) to (c) replayed on the plain
+    # backend, which must launch nothing.
+    cfg4, model4, params4 = _build_model(4, sched.prepare_policy(),
+                                         superplane=True, seed=0)
+    log("[tiers-4] depth cut: 4 of qwen3-8b's 36 layers")
+    kw4 = MIXED_KW
+    rt = Runtime(policy=sched.policy_for(), schedule=sched)
+    rt_plain = Runtime(policy=plain.policy_for(), schedule=plain)
+    mig = _migration("tiers-4-migrate", model4, params4, rt, time_it=True)
+    four = _tier_engines(model4, params4, sched, "tiers-4", kw4)
+    _check_one_tier_launches("tiers-4", four)
+    plain4 = _tier_engines(model4, params4, plain, "tiers-4-plain", kw4)
+    for run in ("mixed", "serialized"):
+        _check_plain(f"tiers-4-{run}", plain4[run], four[run])
+    for tier in TIERS:
+        _check_plain(f"tiers-4-batch-{tier}", plain4["batch"][tier],
+                     four["batch"][tier])
+    mig_plain = _migration("tiers-4-migrate-plain", model4, params4,
+                           rt_plain, time_it=False)
+    _check_plain("tiers-4-migrate", {"stats": {"launches":
+                                               mig_plain["launches"]},
+                                     "tokens": mig_plain["tokens"]}, mig)
+    del model4, params4
+    return {**st, "arena_bytes": res["arena_bytes"],
+            "bf16_arena_bytes": bf16_arena,
+            "migration_ms": mig["migration_ms"]}
+
+
+def _profile_tier_step(model, params, sched) -> None:
+    """One traced decode chunk of the mixed-KV engine (all slots busy, three
+    tiers): device operations per step and the device-busy share, as phase
+    3 reads them for the bf16 arena."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve import engine as engine_mod
+    eng = engine_mod.ServeEngine(model, params, Runtime(
+        policy=sched.policy_for(), schedule=sched), **MIXED_KW)
+    for r in _requests(9, model.cfg.vocab_size, 16, list(TIERS), seed=1):
+        eng.submit(r)
+    eng._admit_free_slots()
+    rt = eng._runtime()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._decode_chunk(rt, 8)
+        wall = 1e3 * (time.perf_counter() - t0)
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = _busy_us(spans)
+    log("[tiers] profile of one decode chunk: " + json.dumps({
+        "steps": 8, "wall_ms": wall, "device_ops_per_step": len(spans) / 8,
+        "device_busy_share": busy / 1e3 / wall if spans else "not measured"}))
+
+
 def phase_fixed() -> dict:
     from repro_torch.core.policy import uniform_policy
     from repro_torch.models.layers import Runtime
@@ -1170,35 +1482,44 @@ def phase_fixed() -> dict:
     cfg, model, params = _build_model(4, policy, superplane=False, seed=2)
     log("[fixed] depth cut: 4 of qwen3-8b's 36 layers")
     reqs = _requests(6, cfg.vocab_size, 16, None, seed=3)
-    kw = dict(max_batch=4, max_len=256, kv_bits=8, decode_chunk=8,
-              device="cuda")
-    eng = engine_mod.ServeEngine(model, params, Runtime(policy=policy), **kw)
-    res = _serve(eng, reqs, "fixed")
-    _check_streams("fixed", res["tokens"], reqs, cfg.padded_vocab)
-    _check_launches("fixed", res["stats"]["launches"],
-                    used=("act_quant", "bitserial_matmul"),
-                    unused=("packed_bitserial_matmul", "grouped_matmul"))
-    del eng
-    ref_eng = engine_mod.ServeEngine(
-        model, params, Runtime(policy=policy.with_backend("decomposed")), **kw)
-    _check_plain("fixed", _serve(ref_eng, reqs, "fixed-plain"), res)
-    del ref_eng, params
+    kw = dict(max_batch=4, max_len=256, decode_chunk=8, device="cuda")
+    runs = {}
+    # The int8 KV cache, then the int4 one (two codes a byte).
+    for kv in (8, 4):
+        label = f"fixed-kv{kv}"
+        eng = engine_mod.ServeEngine(model, params, Runtime(policy=policy),
+                                     kv_bits=kv, **kw)
+        runs[kv] = _serve(eng, reqs, label)
+        _check_streams(label, runs[kv]["tokens"], reqs, cfg.padded_vocab)
+        _check_launches(label, runs[kv]["stats"]["launches"],
+                        used=("act_quant", "bitserial_matmul"),
+                        unused=("packed_bitserial_matmul", "grouped_matmul"))
+        del eng
+        ref_eng = engine_mod.ServeEngine(
+            model, params, Runtime(policy=policy.with_backend("decomposed")),
+            kv_bits=kv, **kw)
+        _check_plain(label, _serve(ref_eng, reqs, label + "-plain"),
+                     runs[kv])
+        del ref_eng
+    del params
     gc.collect()                   # engines and handles form cycles
     # The LSB-first packed store of the same weights (kernel 5 at base 0).
     _, model, params = _build_model(4, policy, superplane=False, seed=2,
                                     packed=True)
-    eng = engine_mod.ServeEngine(model, params, Runtime(policy=policy),
-                                 packed=True, **kw)
-    packed = _serve(eng, reqs, "fixed-packed")
-    _check_launches("fixed-packed", packed["stats"]["launches"],
-                    used=("packed_bitserial_matmul", "act_quant"),
-                    unused=("bitserial_matmul", "grouped_matmul"))
-    if packed["tokens"] != res["tokens"]:
-        raise AssertionError("fixed-packed: streams differ from the "
-                             "int8-plane store's")
-    log(f"[fixed-packed] {len(res['tokens'])} streams identical to the "
-        "int8-plane store's")
-    return res["stats"]
+    for kv in (8, 4):
+        label = f"fixed-kv{kv}-packed"
+        eng = engine_mod.ServeEngine(model, params, Runtime(policy=policy),
+                                     packed=True, kv_bits=kv, **kw)
+        packed = _serve(eng, reqs, label)
+        _check_launches(label, packed["stats"]["launches"],
+                        used=("packed_bitserial_matmul", "act_quant"),
+                        unused=("bitserial_matmul", "grouped_matmul"))
+        _check_same(label, packed["tokens"], runs[kv]["tokens"],
+                    "the int8-plane store's")
+        del eng
+    if runs[4]["tokens"] == runs[8]["tokens"]:
+        log("[fixed] note: the int4 KV streams equal the int8 ones")
+    return runs[8]["stats"]
 
 
 # --------------------------------------------------------------- phase 6
@@ -1250,15 +1571,23 @@ def phase_times() -> dict:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     log("[times] each call timed with a cold L2 (256 MB written before it)")
     log("[times] library_ms: torch._int_mm on the recomposed 8-bit weight for "
-        "bitserial_matmul and packed_bitserial_matmul at P=4, M=64 (it needs "
-        "M > 16); no single PyTorch call computes act_quant, act_quant_rows, "
-        "grouped_matmul or grouped_dequant_matmul")
+        "bitserial_matmul and packed_bitserial_matmul at P=4 and M > 16 (it "
+        "rejects M <= 16); no single PyTorch call computes act_quant, "
+        "act_quant_rows, grouped_matmul or grouped_dequant_matmul")
+    log("[times] bound_ms of the GEMMs: operations 2*M*K*N, the weight's MACs "
+        "once (the function is x @ the weight its planes compose, one int8 "
+        "pass), not once per plane")
 
     def row(kernel, shape, fn, plain, nbytes, ops, library=None,
             flush=flush):
         ms = _time_ms(fn, flush)
         plain_ms = _time_ms(plain, flush, reps=5, warm=1)
-        lib_ms = _time_ms(library, flush) if library is not None else None
+        lib_ms = None
+        if library is not None:
+            try:
+                lib_ms = _time_ms(library, flush)
+            except RuntimeError as e:   # the library's own shape check
+                log(f"[times] {kernel} {shape}: no library time: {e}")
         bound, by = _bound_ms(nbytes, ops)
         r = {"name": kernel, "shape": shape, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
@@ -1331,7 +1660,7 @@ def phase_times() -> dict:
                 row("bitserial_matmul", f"M={m} K={k} N={n} P={p}",
                     lambda pre=pre, sh=sh: bsm.bitserial_matmul(x, pre, sh),
                     lambda pre=pre, sh=sh: ref.bitserial_matmul_ref(x, pre, sh),
-                    m * k + p * k * n + 4 * m * n, 2.0 * m * k * n * p,
+                    m * k + p * k * n + 4 * m * n, 2.0 * m * k * n,
                     lib if p == 4 else None)
                 # The packed store reads one byte per weight at any P.
                 row("packed_bitserial_matmul", f"M={m} K={k} N={n} P={p}",
@@ -1339,7 +1668,7 @@ def phase_times() -> dict:
                         x, packed, w_bits=8, eff_bits=2 * p),
                     lambda p=p: ref.packed_bitserial_matmul_ref(
                         x, packed, 8, 2 * p),
-                    m * k + k * n + 4 * m * n, 2.0 * m * k * n * p,
+                    m * k + k * n + 4 * m * n, 2.0 * m * k * n,
                     lib if p == 4 else None)
             mult, xs, ws, rg = _grouped_args(_mixed_layout(m), n, gen)
             scales = m * 16 + m * 4 + 3 * n * 4 + m * 4
@@ -1351,13 +1680,39 @@ def phase_times() -> dict:
                         x, w, mult, xs, ws, rg, **lay),
                     lambda w=w, lay=lay: ref.grouped_dequant_matmul_ref(
                         x, w, mult, xs, ws, rg, **lay),
-                    m * k + wbytes + scales + 2 * m * n, 2.0 * m * k * n * 4)
+                    m * k + wbytes + scales + 2 * m * n, 2.0 * m * k * n)
                 row("grouped_matmul", f"M={m} K={k} N={n} Pmax=4{label}",
                     lambda w=w, lay=lay: gmm.grouped_matmul(x, w, mult, **lay),
                     lambda w=w, lay=lay: ref.grouped_matmul_ref(x, w, mult,
                                                                 **lay),
-                    m * k + wbytes + m * 16 + 4 * m * n, 2.0 * m * k * n * 4)
+                    m * k + wbytes + m * 16 + 4 * m * n, 2.0 * m * k * n)
             del x, planes, packed, lib
+            torch.cuda.empty_cache()
+    # The shift GEMMs at a BatchServeEngine prefill's rows (M > 64: more
+    # than one row tile), P = 4 and 1, beside torch._int_mm at P = 4.
+    for m in PREFILL_ROWS:
+        for k, n in GEMM_SHAPES:
+            x, planes = _inputs(m, k, n, gen)
+            packed = ops.pack_planes(planes.flip(0), 8)
+            w8 = decompose.recompose_weights(
+                planes.flip(0), 8).to(torch.int8).contiguous()
+            lib = (lambda x=x, w8=w8: torch._int_mm(x, w8))
+            for p in (4, 1):
+                pre = planes[:p]
+                sh = decompose.prefix_shifts(p)
+                row("bitserial_matmul", f"M={m} K={k} N={n} P={p}",
+                    lambda pre=pre, sh=sh: bsm.bitserial_matmul(x, pre, sh),
+                    lambda pre=pre, sh=sh: ref.bitserial_matmul_ref(x, pre, sh),
+                    m * k + p * k * n + 4 * m * n, 2.0 * m * k * n,
+                    lib if p == 4 else None)
+                row("packed_bitserial_matmul", f"M={m} K={k} N={n} P={p}",
+                    lambda p=p: bsm.packed_bitserial_matmul(
+                        x, packed, w_bits=8, eff_bits=2 * p),
+                    lambda p=p: ref.packed_bitserial_matmul_ref(
+                        x, packed, 8, 2 * p),
+                    m * k + k * n + 4 * m * n, 2.0 * m * k * n,
+                    lib if p == 4 else None)
+            del x, planes, packed, w8, lib
             torch.cuda.empty_cache()
     # The verify window of a speculative round: M = SPEC_SLOTS * (SPEC_K+1)
     # rows in the three-tier verify layout (groups of n * (k+1) rows).
@@ -1369,7 +1724,6 @@ def phase_times() -> dict:
         lambda: aq.act_quant_rows(xb, qmax, perm=perm),
         lambda: ref.act_quant_rows_ref(xb, qmax, perm=perm),
         2 * m * 4096 + m * 4096 + m * 4 + m * 12, 0)
-    plane_rows = sum(r * p for r, p in layout)
     for k, n in ((4096, 12288), (4096, 152064)):
         x, planes = _inputs(m, k, n, gen)
         packed = ops.pack_planes(planes.flip(0), 8)
@@ -1385,7 +1739,7 @@ def phase_times() -> dict:
                 lambda w=w, lay=lay: ref.grouped_dequant_matmul_ref(
                     x, w, mult, xs, ws, rg, **lay),
                 m * k + w.numel() + scales + 2 * m * n,
-                2.0 * k * n * plane_rows)
+                2.0 * m * k * n)
         del x, planes, packed, pre
         torch.cuda.empty_cache()
     return {"rows": rows, "launch_floor_ms": floor}
@@ -1426,6 +1780,8 @@ def main() -> int:
                            out["mixed"]["streams"])),
                        ("spec", lambda: phase_spec(out["mixed"],
                                                    out["build"]["card"])),
+                       ("tiers", lambda: phase_tiers(out["mixed"],
+                                                     out["build"]["card"])),
                        ("fixed", phase_fixed), ("times", phase_times)):
         t = time.perf_counter()
         out[phase] = run()
@@ -1450,7 +1806,7 @@ def main() -> int:
             "library_ms": t["library_ms"], "shape": t["shape"],
             "launches_by_path": {path: out[path]["launches"][name]
                                  for path in ("parity", "mixed", "packed",
-                                              "spec")}}
+                                              "spec", "tiers")}}
         if name.startswith("act_quant"):
             entry["launch_floor_ms"] = out["times"]["launch_floor_ms"]
         if name == "grouped_dequant_matmul":   # its packed mode, on "packed"

@@ -94,8 +94,10 @@ class PrecisionSchedule:
     ``rules`` optionally refines single tiers per layer-name glob (first
     match wins).  All precisions share ``w_signed`` and use an integer
     serving backend with an even, plane-truncatable ``w_bits``.
-    ``kv_tiers`` (tier -> KV precision) is validated here; the port's
-    engine does not serve it yet."""
+    ``kv_tiers`` optionally maps tier -> KV-cache precision (None = bf16,
+    8, 4; tiers left out are bf16): a tiered engine then keeps ONE mixed
+    per-slot KV arena whose slots store K/V at their request's tier's
+    precision (``models.layers.KVCache``)."""
 
     tiers: Dict[str, LayerPrecision]
     rules: Dict[str, Dict[str, LayerPrecision]] = dataclasses.field(
@@ -149,6 +151,36 @@ class PrecisionSchedule:
     @property
     def w_signed(self) -> bool:
         return next(iter(self.tiers.values())).w_signed
+
+    # ------------------------------------------------------------ kv tiers
+    def kv_bits_for(self, tier: Optional[str] = None) -> Optional[int]:
+        """KV storage precision of a tier (None = bf16): what a fixed-
+        precision engine at that tier uses for its whole cache."""
+        tier = self._tier(tier)
+        if self.kv_tiers is None:
+            return None
+        return self.kv_tiers.get(tier)
+
+    def kv_code_for(self, tier: Optional[str] = None) -> int:
+        """A tier's code in the mixed arena (16 = bf16, 8, 4)."""
+        kb = self.kv_bits_for(tier)
+        return 16 if kb is None else kb
+
+    @property
+    def kv_modes(self) -> Optional[tuple]:
+        """The codes the mixed arena serves, descending; None without
+        ``kv_tiers``."""
+        if self.kv_tiers is None:
+            return None
+        return tuple(sorted({self.kv_code_for(t) for t in self.tiers},
+                            reverse=True))
+
+    def tier_bits(self, tier: Optional[str] = None) -> tuple:
+        """A tier's default ``(w_bits, a_bits)``, as admission prices it
+        (``hwmodel.energy.relative_tier_costs``; per-layer rules are not
+        seen)."""
+        prec = self.tiers[self._tier(tier)]
+        return (prec.w_bits, prec.a_bits)
 
     def _tier(self, tier: Optional[str]) -> str:
         tier = self.default_tier if tier is None else tier

@@ -14,6 +14,23 @@ mixed-tier batches):
 
 ``--packed`` prepares the byte-packed store (one uint8 per weight in place
 of int8 planes; even widths only, odd ``--w-bits`` keep their planes).
+``--kv-bits 8`` or ``4`` quantizes the KV cache (int8, or int4 packed two
+to a byte); ``--baseline`` serves through the batch-at-a-time
+``BatchServeEngine`` instead.
+
+Per-request KV precision (one value per tier, aligned with ``--tiers``:
+bf16, 8 or 4; ONE mixed per-slot KV arena), the tier-serialized mode
+(one tier per decode batch), SLO-aware admission (every 3rd request gets
+a tight deadline; ``--auto-tier`` retags it to a tier that fits) and
+mid-stream tier migration (the first live request moves to the last
+``--tiers`` entry after a few tokens, its KV lanes requantized in place):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --tiers 8/8 4/4 2/2 --kv-tiers bf16 8 4 --migrate-demo --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --tiers 8/8 4/4 2/2 --serialize-tiers --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --tiers 8/8 4/4 2/2 --slo --auto-tier --device cpu
 
 Seeded sampling (``--temperature``, ``--top-k``) and self-speculative
 decoding (``--speculate``: draft ``--spec-k`` tokens a round at the
@@ -43,7 +60,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.layers import Runtime
 from repro_torch.models.transformer import LM
 from repro_torch.serve import engine as engine_mod
+from repro_torch.serve.handle import RequestStatus
 from repro_torch.serve.request import Request
+from repro_torch.serve.scheduler import SLOPolicy
 from repro_torch.spec.sampling import SamplingParams
 from repro_torch.spec.speculate import SpecConfig
 
@@ -54,7 +73,7 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--w-bits", type=int, default=4)
     ap.add_argument("--a-bits", type=int, default=8)
-    ap.add_argument("--kv-bits", type=int, default=None, choices=[8])
+    ap.add_argument("--kv-bits", type=int, default=None, choices=[8, 4])
     ap.add_argument("--packed", action="store_true",
                     help="byte-packed store: one uint8 per weight")
     ap.add_argument("--backend", default="cuda",
@@ -68,6 +87,28 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--decode-chunk", type=int, default=8)
+    ap.add_argument("--baseline", action="store_true",
+                    help="serve through the batch-at-a-time BatchServeEngine")
+    ap.add_argument("--kv-tiers", nargs="+", default=None, metavar="KV",
+                    help="per-tier KV-cache precision aligned with --tiers "
+                         "(bf16, 8 or 4): ONE mixed per-slot KV arena, each "
+                         "request's slot stored at its tier's precision")
+    ap.add_argument("--serialize-tiers", action="store_true",
+                    help="tier-serialized admission (one tier per decode "
+                         "batch) instead of mixed-tier batches")
+    ap.add_argument("--slo", action="store_true",
+                    help="SLO-aware admission (SLOPolicy): every 3rd request "
+                         "gets a tight deadline; reports queue waits and "
+                         "deadline misses")
+    ap.add_argument("--auto-tier", action="store_true",
+                    help="with --slo on a tiered engine: a deadlined request "
+                         "is retagged at admission to the best tier whose "
+                         "priced service time fits its deadline")
+    ap.add_argument("--migrate-demo", action="store_true",
+                    help="after a few tokens the first live request moves "
+                         "to the last --tiers entry (its KV lanes "
+                         "requantized in place; needs --tiers, mixed "
+                         "admission)")
     ap.add_argument("--speculate", action="store_true",
                     help="self-speculative decoding: draft --spec-k tokens "
                          "per round at the --draft-tier plane prefix, "
@@ -88,10 +129,48 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     # Flag checks before any model is built.
+    kv_tiers = None
+    if args.tiers:
+        if args.baseline:
+            ap.error("--baseline has no per-request tier switching "
+                     "(it pins one tier); drop --tiers")
+        if args.kv_tiers:
+            if len(args.kv_tiers) != len(args.tiers):
+                ap.error("--kv-tiers must align 1:1 with --tiers")
+            if args.kv_bits is not None:
+                ap.error("--kv-bits conflicts with --kv-tiers; drop one")
+            try:
+                kv_tiers = {t: (None if kv in ("bf16", "none") else int(kv))
+                            for t, kv in zip(args.tiers, args.kv_tiers)}
+            except ValueError:
+                ap.error(f"--kv-tiers values must be bf16, 8 or 4, got "
+                         f"{args.kv_tiers}")
+    else:
+        if args.kv_tiers:
+            ap.error("--kv-tiers needs --tiers")
+        if args.serialize_tiers:
+            ap.error("--serialize-tiers needs --tiers")
+    if args.migrate_demo:
+        if not args.tiers or len(args.tiers) < 2:
+            ap.error("--migrate-demo needs --tiers with >= 2 tiers")
+        if args.serialize_tiers:
+            ap.error("--migrate-demo needs mixed-tier admission (drop "
+                     "--serialize-tiers)")
+    if args.slo and args.baseline:
+        ap.error("--slo has no effect on the batch-at-a-time baseline")
+    if args.auto_tier and not args.slo:
+        ap.error("--auto-tier needs --slo (it is SLOPolicy's admission "
+                 "hook)")
+    if args.auto_tier and (not args.tiers or args.serialize_tiers):
+        ap.error("--auto-tier needs runtime tiers with mixed admission "
+                 "(--tiers, no --serialize-tiers)")
     if args.speculate:
         if not args.tiers:
             ap.error("--speculate drafts at a plane-prefix tier; it needs "
                      "--tiers")
+        if args.serialize_tiers:
+            ap.error("--speculate needs mixed-tier admission (drop "
+                     "--serialize-tiers)")
         if args.spec_k < 1:
             ap.error(f"--spec-k must be >= 1, got {args.spec_k}")
         if args.draft_tier is None:
@@ -105,6 +184,9 @@ def main(argv=None):
         ap.error(f"--temperature must be >= 0, got {args.temperature}")
     if args.top_k < 0:
         ap.error(f"--top-k must be >= 0, got {args.top_k}")
+    if args.temperature > 0.0 and args.baseline:
+        ap.error("--temperature needs the continuous-batching engine; the "
+                 "baseline decodes greedily (drop --baseline)")
 
     schedule = None
     if args.tiers:
@@ -112,7 +194,7 @@ def main(argv=None):
             ap.error("--tiers needs an integer backend")
         schedule = uniform_schedule(
             {t: tuple(int(b) for b in t.split("/")) for t in args.tiers},
-            backend=args.backend)
+            backend=args.backend, kv_tiers=kv_tiers)
         policy = schedule.policy_for()
     else:
         policy = uniform_policy(args.w_bits, args.a_bits, backend=args.backend)
@@ -140,9 +222,21 @@ def main(argv=None):
     print(f"initialised {cfg.name} ({kind}) on {device} in "
           f"{time.time() - t0:.1f}s")
     rt = Runtime(policy=policy, schedule=schedule)
-    engine = engine_mod.ServeEngine(
-        model, params, rt, max_batch=args.max_batch, max_len=args.max_len,
-        kv_bits=args.kv_bits, decode_chunk=args.decode_chunk, device=device)
+    if args.baseline:
+        engine = engine_mod.BatchServeEngine(
+            model, params, rt, max_batch=args.max_batch,
+            max_len=args.max_len, kv_bits=args.kv_bits, device=device)
+    else:
+        scheduler_policy = SLOPolicy(
+            schedule, auto_tier=args.auto_tier,
+            mac_counts=cfg.quant_layer_macs() if schedule else None) \
+            if args.slo else None
+        engine = engine_mod.ServeEngine(
+            model, params, rt, max_batch=args.max_batch,
+            max_len=args.max_len, kv_bits=args.kv_bits,
+            decode_chunk=args.decode_chunk,
+            mixed_tiers=not args.serialize_tiers,
+            scheduler_policy=scheduler_policy, device=device)
 
     rng = np.random.default_rng(args.seed)
     tier_of = (lambda i: args.tiers[i % len(args.tiers)]) if args.tiers \
@@ -153,18 +247,40 @@ def main(argv=None):
                                   top_k=args.top_k, seed=args.seed)
     spec = SpecConfig(draft_tier=args.draft_tier, k=args.spec_k) \
         if args.speculate else None
+    # --slo: every 3rd request is urgent (a tight budget in scheduler-clock
+    # ticks), the rest patient.
+    deadline_of = (lambda i: 4.0 * args.max_new if i % 3 == 2
+                   else 50.0 * args.max_new) if args.slo \
+        else (lambda i: None)
     reqs = [Request(uid=i,
                     prompt=rng.integers(0, cfg.vocab_size,
                                         size=4 + i % 5).astype(np.int32),
                     max_new_tokens=1 + (args.max_new * (i % 4)) // 3,
-                    tier=tier_of(i), sampling=sampling, spec=spec)
+                    tier=tier_of(i), deadline=deadline_of(i),
+                    sampling=sampling, spec=spec)
             for i in range(args.requests)]
     t0 = time.time()
     handles = [engine.submit(r) for r in reqs]
     events = 0
+    migrated = None
     while engine.has_work:
         events += len(engine.step())
+        if args.migrate_demo and migrated is None:
+            target = args.tiers[-1]
+            for h in handles:
+                if (h.status is RequestStatus.RUNNING and h.tier != target
+                        and len(h.tokens) >= 2):
+                    h.set_tier(target)
+                    migrated = h
+                    print(f"migrated uid={h.uid} -> {target} after "
+                          f"{len(h.tokens)} tokens (clock "
+                          f"{engine.clock:.0f})")
+                    break
     dt = time.time() - t0
+    if args.migrate_demo and migrated is None:
+        print("migrate-demo: no request lived long enough to migrate — "
+              "every budget fit one decode chunk; raise --max-new or "
+              "lower --decode-chunk")
     results = {h.uid: h.tokens for h in handles}
     toks = sum(len(v) for v in results.values())
     print(f"served {len(reqs)} requests, {toks} tokens ({events} streamed "
@@ -175,8 +291,19 @@ def main(argv=None):
         "decode_chunks": st.decode_chunks,
         "decode_slot_steps": st.decode_slot_steps,
         "mixed_tier_chunks": st.mixed_tier_chunks,
+        "tier_switches": st.tier_switches,
+        "tier_migrations": st.tier_migrations,
+        "kv_migrations": st.kv_migrations,
+        "tier_autoselects": st.tier_autoselects,
         "decode_steps_by_tier": st.decode_steps_by_tier,
         "tokens_by_tier": st.tokens_by_tier}, sort_keys=True))
+    if args.slo:
+        misses = [h.uid for h in handles if h.request.deadline is not None
+                  and h.finished_at - h.submitted_at > h.request.deadline]
+        print("slo " + json.dumps({
+            "queue_wait": {h.uid: h.queue_wait for h in handles},
+            "deadline_misses": misses,
+            "tiers": {h.uid: h.tier for h in handles}}, sort_keys=True))
     if args.speculate:
         rate = st.spec_accepted / st.spec_drafted if st.spec_drafted else 0.0
         print("spec " + json.dumps({

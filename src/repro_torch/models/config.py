@@ -77,3 +77,28 @@ class ArchConfig:
         p = len(self.period_pattern())
         assert self.num_layers % p == 0, (self.num_layers, p)
         return self.num_layers // p
+
+    def quant_layer_macs(self) -> "dict[str, int]":
+        """MACs per decoded token of every quantized projection, keyed by
+        its policy layer name (``layers.pos{i}.<block>.<proj>``, plus
+        ``lm_head``); a name covers all ``n_periods`` instances.  What
+        ``SLOPolicy`` prices a schedule's tiers with (attention + MLP
+        layers; SSM and MoE layers are ROADMAP Queue 1 item 8)."""
+        d, dh, n = self.d_model, self.head_dim or 0, self.n_periods
+        macs: "dict[str, int]" = {}
+        for i, (mixer, ff) in enumerate(self.period_pattern()):
+            if mixer != "attn" or ff != "mlp":
+                raise NotImplementedError(
+                    f"{self.name}: SSM and MoE layers are ROADMAP Queue 1 "
+                    "item 8")
+            base = f"layers.pos{i}"
+            macs[f"{base}.attn.q_proj"] = n * d * self.num_heads * dh
+            macs[f"{base}.attn.k_proj"] = n * d * self.num_kv_heads * dh
+            macs[f"{base}.attn.v_proj"] = n * d * self.num_kv_heads * dh
+            macs[f"{base}.attn.o_proj"] = n * self.num_heads * dh * d
+            macs[f"{base}.mlp.gate_proj"] = n * d * self.d_ff
+            macs[f"{base}.mlp.up_proj"] = n * d * self.d_ff
+            macs[f"{base}.mlp.down_proj"] = n * self.d_ff * d
+        if not self.tie_embeddings:
+            macs["lm_head"] = d * self.padded_vocab
+        return macs

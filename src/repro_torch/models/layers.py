@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -216,8 +216,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ------------------------------------------------------------------ KV cache
+# KV storage modes: a cache is homogeneous (bf16; int8 codes; int4 codes
+# packed two to a byte, each with per-(position, head) bf16 scales) or a
+# MIXED per-slot byte-lane arena: uint8 lanes [B, Smax, KVH, L] wide enough
+# for the widest mode served, a per-slot tier code ``kv_bits`` int32 [B]
+# (16 = bf16 bytes, 8, 4) and shared scale rows.  A mixed slot stores
+# exactly the bytes of the homogeneous cache at its code, so a request's
+# tokens do not depend on its neighbours' KV precision.
+
+KV_TIER_BITS = (16, 8, 4)     # bf16 bytes, int8, int4 packed
+
+
+def _kv_lane_bytes(bits: int, head_dim: int) -> int:
+    """Bytes one (position, head) row takes at a tier code."""
+    return {16: 2 * head_dim, 8: head_dim, 4: head_dim // 2}[bits]
+
+
 def _kv_quant(x: torch.Tensor, bits: int, scale_dtype: torch.dtype):
-    """Symmetric per-(position, head) KV quantization (int8 codes).
+    """Symmetric per-(position, head) KV quantization (int8 codes in
+    [-2^(bits-1), 2^(bits-1) - 1]), for every mode that quantizes.
 
     The scale is ``amax * (1/qmax)``: the reference writes ``/ qmax`` but
     runs it jitted, where XLA turns the division by a constant into this
@@ -230,55 +247,183 @@ def _kv_quant(x: torch.Tensor, bits: int, scale_dtype: torch.dtype):
     return q.to(torch.int8), scale.to(scale_dtype)
 
 
+def _pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 codes in [-8, 7] [..., Dh] -> uint8 [..., Dh//2]: element 2i
+    in the low nibble, 2i+1 in the high one."""
+    u = q.view(torch.uint8)
+    return (u[..., 0::2] & 0xF) | ((u[..., 1::2] & 0xF) << 4)
+
+
+def _unpack_int4(b: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_pack_int4` (sign-extended int8 [..., Dh])."""
+    lo = (b & 0xF).to(torch.int32)
+    hi = ((b >> 4) & 0xF).to(torch.int32)
+    both = torch.stack([lo, hi], dim=-1).reshape(*b.shape[:-1], -1)
+    return torch.where(both >= 8, both - 16, both).to(torch.int8)
+
+
+def _bf16_to_bytes(x: torch.Tensor) -> torch.Tensor:
+    """bf16 [..., Dh] -> its bytes, little end first, uint8 [..., 2*Dh]."""
+    return x.to(torch.bfloat16).contiguous().view(torch.uint8)
+
+
+def _bytes_to_bf16(b: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_bf16_to_bytes`."""
+    return b.contiguous().view(torch.bfloat16)
+
+
 @dataclasses.dataclass
 class KVCache:
-    """Pre-allocated KV cache with PER-SLOT lengths, bf16 or int8 codes with
-    per-(position, head) bf16 scales.  Slot axis first: [B, Smax, KVH, Dh].
-    All writes are in place (see the module docstring)."""
+    """Pre-allocated KV cache with PER-SLOT lengths and, in the mixed mode,
+    PER-SLOT tier codes.  Slot axis first: [B, Smax, KVH, lanes].  All
+    writes are in place (see the module docstring).
+
+    Homogeneous: bf16 [.., Dh]; int8 codes [.., Dh]; int4 nibbles uint8
+    [.., Dh//2] — quantized modes with bf16 scales [B, Smax, KVH, 1].
+    Mixed: uint8 lanes, ``kv_bits`` int32 [B] and ``modes`` (the codes the
+    arena serves, descending); each slot encodes and decodes at its own
+    code, every mode computed and the slot's one selected per slot (no
+    host read of ``kv_bits``)."""
 
     k: torch.Tensor
     v: torch.Tensor
-    k_scale: Optional[torch.Tensor]   # bf16 [B, Smax, KVH, 1] when int8
+    k_scale: Optional[torch.Tensor]   # bf16 [B, Smax, KVH, 1] when quantized
     v_scale: Optional[torch.Tensor]
     length: torch.Tensor              # int32 [B] — filled positions per slot
+    kv_bits: Optional[torch.Tensor] = None   # int32 [B] tier codes (mixed)
+    modes: Optional[tuple] = None            # codes served, descending
 
     @property
     def quantized(self) -> bool:
+        """Homogeneous int8 storage."""
         return self.k.dtype == torch.int8
+
+    @property
+    def packed4(self) -> bool:
+        """Homogeneous int4 nibble storage."""
+        return self.k.dtype == torch.uint8 and self.kv_bits is None
+
+    @property
+    def mixed(self) -> bool:
+        """Per-slot tiered byte-lane arena."""
+        return self.kv_bits is not None
+
+    @property
+    def head_dim(self) -> int:
+        lanes = self.k.shape[-1]
+        if self.mixed:
+            return {16: lanes // 2, 8: lanes, 4: 2 * lanes}[self.modes[0]]
+        return 2 * lanes if self.packed4 else lanes
 
     @staticmethod
     def create(batch: int, max_len: int, kv_heads: int, head_dim: int,
-               dtype: torch.dtype = torch.bfloat16, kv_bits: Optional[int] = None,
+               dtype: torch.dtype = torch.bfloat16, kv_bits: Any = None,
                device: Optional[torch.device] = None) -> "KVCache":
-        """``kv_bits``: None (bf16 storage) or 8 (int8 codes + scales)."""
+        """``kv_bits``: None (bf16), 8 (int8), 4 (int4 packed), or a tuple
+        of codes from ``KV_TIER_BITS`` for the mixed arena (lanes sized for
+        the widest code; every slot starts at it)."""
         lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
-        shape = (batch, max_len, kv_heads, head_dim)
+
+        def s():
+            return torch.ones((batch, max_len, kv_heads, 1),
+                              dtype=torch.bfloat16, device=device)
+
+        def z(lanes: int, dt: torch.dtype) -> torch.Tensor:
+            return torch.zeros((batch, max_len, kv_heads, lanes), dtype=dt,
+                               device=device)
+        if isinstance(kv_bits, (tuple, list)):
+            modes = tuple(sorted({int(m) for m in kv_bits}, reverse=True))
+            if not modes or any(m not in KV_TIER_BITS for m in modes):
+                raise ValueError(f"mixed kv tiers must be from "
+                                 f"{KV_TIER_BITS}, got {kv_bits}")
+            if head_dim % 2:
+                raise ValueError("per-slot KV tiers need an even head_dim")
+            lanes = max(_kv_lane_bytes(m, head_dim) for m in modes)
+            tiers = torch.full((batch,), modes[0], dtype=torch.int32,
+                               device=device)
+            return KVCache(z(lanes, torch.uint8), z(lanes, torch.uint8), s(),
+                           s(), lengths, kv_bits=tiers, modes=modes)
         if kv_bits == 8:
-            def s():
-                return torch.ones((batch, max_len, kv_heads, 1),
-                                  dtype=torch.bfloat16, device=device)
-            return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
-                           torch.zeros(shape, dtype=torch.int8, device=device),
+            return KVCache(z(head_dim, torch.int8), z(head_dim, torch.int8),
                            s(), s(), lengths)
+        if kv_bits == 4:
+            if head_dim % 2:
+                raise ValueError("int4 KV packing needs an even head_dim")
+            return KVCache(z(head_dim // 2, torch.uint8),
+                           z(head_dim // 2, torch.uint8), s(), s(), lengths)
         if kv_bits is not None:
-            raise NotImplementedError(
-                f"kv_bits={kv_bits!r}: the int4 and mixed per-slot KV modes "
-                "are ROADMAP Queue 1 item 3, not ported yet")
-        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                       torch.zeros(shape, dtype=dtype, device=device),
-                       None, None, lengths)
+            raise ValueError(f"kv_bits must be None, 8, 4 or a tier tuple, "
+                             f"got {kv_bits!r}")
+        return KVCache(z(head_dim, dtype), z(head_dim, dtype), None, None,
+                       lengths)
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the cache (the state a slot holds)."""
+        return [t for t in (self.k, self.v, self.k_scale, self.v_scale,
+                            self.length, self.kv_bits) if t is not None]
 
     def slot(self, slot: int) -> "KVCache":
         """A batch-1 view of one slot; writes through it land in self."""
         sl = slice(slot, slot + 1)
-        return KVCache(self.k[sl], self.v[sl],
-                       None if self.k_scale is None else self.k_scale[sl],
-                       None if self.v_scale is None else self.v_scale[sl],
-                       self.length[sl])
+        return KVCache(*[None if t is None else t[sl] for t in (
+            self.k, self.v, self.k_scale, self.v_scale, self.length,
+            self.kv_bits)], modes=self.modes)
 
+    # ------------------------------------------------- mixed-mode encoding
+    def _slot_select(self, per_mode: List[torch.Tensor]) -> torch.Tensor:
+        """Each slot's candidate, chosen by its ``kv_bits`` code (a code
+        outside ``modes``, e.g. the zero of a fresh arena, takes the last)."""
+        kv = self.kv_bits.reshape((-1,) + (1,) * (per_mode[0].ndim - 1))
+        out = per_mode[-1]
+        for m, cand in zip(self.modes[:-1], per_mode[:-1]):
+            out = torch.where(kv == m, cand, out)
+        return out
+
+    def _encode_mixed(self, x: torch.Tensor):
+        """float [..., Dh] -> (byte lanes [..., L], scale [..., 1]), every
+        slot at its own code (the homogeneous cache's bytes, zero-padded
+        past the code's width)."""
+        lanes = self.k.shape[-1]
+        bys, scs = [], []
+        for m in self.modes:
+            if m == 16:
+                by = _bf16_to_bytes(x)
+                sc = torch.ones(x.shape[:-1] + (1,), dtype=self.k_scale.dtype,
+                                device=x.device)
+            else:
+                q, sc = _kv_quant(x, m, self.k_scale.dtype)
+                by = q.view(torch.uint8) if m == 8 else _pack_int4(q)
+            pad = lanes - by.shape[-1]
+            if pad:
+                by = torch.nn.functional.pad(by, (0, pad))
+            bys.append(by)
+            scs.append(sc)
+        return self._slot_select(bys), self._slot_select(scs)
+
+    def _decode_mixed(self, buf: torch.Tensor, scale: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+        """Byte lanes [..., L] -> values [..., Dh], each slot at its code."""
+        dh = self.head_dim
+        cands = []
+        for m in self.modes:
+            if m == 16:
+                cands.append(_bytes_to_bf16(buf[..., :2 * dh]).to(dtype))
+            else:
+                q = buf[..., :dh].view(torch.int8) if m == 8 \
+                    else _unpack_int4(buf[..., :dh // 2])
+                cands.append(q.to(dtype) * scale.to(dtype))
+        return self._slot_select(cands)
+
+    # --------------------------------------------------------------- writes
     def _encode(self, x: torch.Tensor):
+        """float K or V rows -> (storage, scale or None) for this mode."""
+        if self.mixed:
+            return self._encode_mixed(x)
         if self.quantized:
             return _kv_quant(x, 8, self.k_scale.dtype)
+        if self.packed4:
+            q, sc = _kv_quant(x, 4, self.k_scale.dtype)
+            return _pack_int4(q), sc
         return x.to(self.k.dtype), None
 
     def update(self, k_new: torch.Tensor, v_new: torch.Tensor, start: int, *,
@@ -328,11 +473,39 @@ class KVCache:
         self.length.add_(active.to(self.length.dtype))
         return self
 
+    def requantize(self, kv_bits_new: int) -> "KVCache":
+        """Re-encode the stored K/V at the tier code ``kv_bits_new``, in
+        place (mixed mode only): the KV half of a mid-stream tier migration.
+
+        Every lane, past the lengths included, is read at its CURRENT code
+        (as bf16, through :meth:`read`) and written through ``_encode`` at
+        the new one: the bytes a cache at the new code would hold had it
+        been given the dequantized values.  Every slot of this cache moves
+        to the one code and lengths stay; callers migrate one slot through
+        a slot view."""
+        if not self.mixed:
+            raise ValueError("requantize() needs the mixed per-slot KV "
+                             "arena (kv_bits tier codes)")
+        k, v = self.read(torch.bfloat16)
+        self.kv_bits.fill_(int(kv_bits_new))
+        kq, ks = self._encode(k)
+        vq, vs = self._encode(v)
+        for dst, src in ((self.k, kq), (self.v, vq), (self.k_scale, ks),
+                         (self.v_scale, vs)):
+            dst.copy_(src)
+        return self
+
     def read(self, dtype: torch.dtype = torch.bfloat16):
-        """Dequantized (K, V) views of the whole arena."""
+        """Dequantized (K, V) of the whole arena."""
+        if self.mixed:
+            return (self._decode_mixed(self.k, self.k_scale, dtype),
+                    self._decode_mixed(self.v, self.v_scale, dtype))
         if self.quantized:
             return (self.k.to(dtype) * self.k_scale.to(dtype),
                     self.v.to(dtype) * self.v_scale.to(dtype))
+        if self.packed4:
+            return (_unpack_int4(self.k).to(dtype) * self.k_scale.to(dtype),
+                    _unpack_int4(self.v).to(dtype) * self.v_scale.to(dtype))
         return self.k.to(dtype), self.v.to(dtype)
 
 

@@ -117,12 +117,14 @@ class LM:
         x = self._stack(params, self._embed(params, tokens), rt)
         return self._head(params, x, rt)
 
-    def init_cache(self, batch: int, max_len: int,
-                   kv_bits: Optional[int] = None,
+    def init_cache(self, batch: int, max_len: int, kv_bits: Any = None,
                    device=None) -> List[Dict[str, Any]]:
         """One ``{"pos<j>": KVCache}`` dict per layer; ``kv_bits`` None
-        (bf16) or 8 (int8).  Every tensor starts at zero, scales included,
-        as the reference's arena does."""
+        (bf16), 8 (int8), 4 (int4 packed) or a tuple of tier codes such as
+        ``(16, 8, 4)`` for the mixed per-slot arena
+        (``layers.KVCache.create``).  Every tensor starts at zero — scales
+        and the mixed arena's tier codes included — as the reference's
+        arena does."""
         cfg, dev = self.cfg, resolve_device(device)
         caches = [{f"pos{j}": layers.KVCache.create(
                       batch, max_len, cfg.num_kv_heads, cfg.head_dim,
@@ -131,9 +133,8 @@ class LM:
                   for _ in range(cfg.n_periods)]
         for layer in caches:
             for c in layer.values():
-                for t in (c.k_scale, c.v_scale):
-                    if t is not None:
-                        t.zero_()
+                for t in c.tensors():
+                    t.zero_()
         return caches
 
     def prefill(self, params: Dict[str, Any], rt: layers.Runtime,

@@ -1,7 +1,9 @@
 """Slot-based continuous-batching serving engine (port of
-``repro.serve.engine``: ``prepare_params``, ``PREPARE_CALLS`` and
-``ServeEngine`` with per-slot bucketed prefill, the decode-chunk loop, the
-group-layout memo, seeded sampling and self-speculative rounds).
+``repro.serve.engine``: ``prepare_params``, ``PREPARE_CALLS``, the
+``Engine`` protocol, ``ServeEngine`` with per-slot bucketed prefill, the
+decode-chunk loop, the group-layout memo, per-request KV precision, tier
+migration, the tier-serialized mode, seeded sampling and self-speculative
+rounds, and the batch-at-a-time ``BatchServeEngine``).
 
 * **Weight preload** — at construction the float params are converted ONCE
   into ``QuantizedWeight`` planes (``prepare_params``); with a
@@ -13,6 +15,22 @@ group-layout memo, seeded sampling and self-speculative rounds).
   decode chunk derives a ``(tier, rows)`` group layout from the occupied
   slots' tiers plus a slot permutation, and every projection runs one
   group-switching GEMM over all tiers (``models.layers.linear``).
+  ``mixed_tiers=False`` is the tier-serialized mode: a decode batch runs
+  at ONE tier (``Runtime.for_tier``) and admission takes only that tier's
+  requests until the batch drains (``tier_switches`` counts the changes).
+* **Per-request KV precision** — a schedule with ``kv_tiers`` gets ONE
+  mixed per-slot KV arena (``KVCache`` byte lanes, ``kv_bits=
+  schedule.kv_modes``); each admission resets its slot and sets the
+  slot's tier code (``slots.fill_kv_tier``) before the prefill writes, so
+  the request's K/V are stored at its tier's precision (bf16, int8 or
+  int4).
+* **Tier migration** — ``RequestHandle.set_tier`` re-tags a QUEUED
+  request; a RUNNING one (mixed mode) has its slot's KV lanes requantized
+  in place when its KV code changes (``slots.migrate_kv_tier``), and its
+  weight plane prefix switches at the next group layout.
+* **Admission policy** — ``scheduler_policy`` (FIFO by default;
+  ``SLOPolicy`` for deadline slack, with ``auto_tier`` retagging a
+  deadlined request to a tier that fits at admission).
 * **Decode chunks** — ``decode_chunk`` steps run back to back on the
   device with an active-slot mask; the host reads the chunk's tokens with
   ONE copy at its end and only then admits/retires requests.
@@ -28,8 +46,7 @@ group-layout memo, seeded sampling and self-speculative rounds).
   (``spec.speculate``).  Plain slots decode k ordinary steps in the same
   batches.
 
-Engines asked for preemption, a mesh, per-tier KV precision
-(``kv_tiers``) or ``set_tier`` migration raise ``NotImplementedError``
+Engines asked for preemption or a mesh raise ``NotImplementedError``
 naming the ROADMAP item that ports them.
 
 The scheduler clock is the number of decode steps executed
@@ -39,7 +56,8 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
+from typing import (Any, Dict, List, Optional, Protocol, Sequence, Set,
+                    Tuple, runtime_checkable)
 
 import numpy as np
 import numpy.typing as npt
@@ -51,14 +69,14 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import Runtime
 from repro_torch.models.transformer import LM
 from repro_torch.serve import slots as slots_lib
-from repro_torch.serve.handle import RequestHandle, TokenEvent
+from repro_torch.serve.handle import RequestHandle, RequestStatus, TokenEvent
 from repro_torch.serve.request import Request
-from repro_torch.serve.scheduler import Scheduler
+from repro_torch.serve.scheduler import Scheduler, SchedulerPolicy, SLOPolicy
 from repro_torch.spec import sampling as sampling_lib
 from repro_torch.spec import speculate as spec_lib
 
-__all__ = ["Request", "ServeEngine", "EngineStats", "prepare_params",
-           "prepare_tree", "PREPARE_CALLS"]
+__all__ = ["Request", "Engine", "ServeEngine", "BatchServeEngine",
+           "EngineStats", "prepare_params", "prepare_tree", "PREPARE_CALLS"]
 
 # Mixed-tier group layout: the tuple of (tier name, rows) runs describing a
 # tier-sorted decode batch (see Runtime.for_groups).
@@ -70,8 +88,6 @@ PREPARE_CALLS = 0
 
 TODO_PREEMPT = "preemption is ROADMAP Queue 1 item 6, not ported yet"
 TODO_MESH = "tensor-parallel serving is ROADMAP Queue 1 item 10, not ported yet"
-TODO_KV_TIERS = ("per-tier KV precision (kv_tiers) and set_tier KV migration "
-                 "are ROADMAP Queue 1 items 3-4, not ported yet")
 
 
 def _layer_name(path: Tuple[Any, ...]) -> str:
@@ -202,7 +218,14 @@ class EngineStats:
     spec_drafted`` is the acceptance rate and ``spec_verify_steps /
     spec_emitted`` the verify steps per emitted token.  The identity
     ``decode_slot_steps + decode_idle_slot_steps == decode_steps *
-    max_batch`` holds through speculative rounds."""
+    max_batch`` holds through speculative rounds.
+
+    ``tier_switches`` moves only in the tier-serialized mode (a decode
+    batch started at another tier than the last); ``tier_migrations``
+    counts ``set_tier`` on RUNNING requests and ``kv_migrations`` those
+    that requantized a live KV lane (the two tiers' KV codes differ);
+    ``tier_autoselects`` the admission-time retags of
+    ``SLOPolicy(auto_tier=True)``; ``sheds`` the cancelled requests."""
 
     prefills: int = 0
     prefill_tokens: int = 0
@@ -210,7 +233,12 @@ class EngineStats:
     decode_chunks: int = 0
     decode_slot_steps: int = 0
     decode_idle_slot_steps: int = 0
+    tier_switches: int = 0
     mixed_tier_chunks: int = 0
+    tier_migrations: int = 0
+    kv_migrations: int = 0
+    tier_autoselects: int = 0
+    sheds: int = 0
     spec_rounds: int = 0
     spec_draft_steps: int = 0
     spec_verify_steps: int = 0
@@ -226,6 +254,72 @@ class EngineStats:
     tokens_by_tier: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
+@runtime_checkable
+class Engine(Protocol):
+    """The serving surface both engines implement.  ``submit`` validates
+    and queues one request and returns its streaming handle; ``step`` runs
+    one scheduling round and returns the tokens it emitted; ``drain`` steps
+    until idle and returns every finished request's tokens; ``run`` submits
+    a list, drains and collects.  ``retire`` drops a terminal request's
+    host state and returns its tokens; ``cancel`` drops a QUEUED request
+    (handle SHED).  ``clock`` is the scheduler clock (decode steps
+    executed) that submission times and deadlines are priced in."""
+
+    def submit(self, request: Request) -> RequestHandle: ...
+
+    def step(self) -> List[TokenEvent]: ...
+
+    def drain(self) -> Dict[int, List[int]]: ...
+
+    def run(self, requests: Sequence[Request]) -> Dict[int, List[int]]: ...
+
+    def retire(self, uid: int) -> List[int]: ...
+
+    def cancel(self, uid: int) -> None: ...
+
+    @property
+    def has_work(self) -> bool: ...
+
+    @property
+    def clock(self) -> float: ...
+
+
+def _retire(engine: Any, finished: Dict[int, List[int]], uid: int
+            ) -> List[int]:
+    """Both engines' ``retire``: drop a FINISHED or SHED request's handle,
+    results entry and uid reservation; return its tokens (a SHED request's
+    are whatever it streamed)."""
+    handle = engine.handles.get(uid)
+    if handle is None:
+        raise KeyError(f"unknown uid {uid}")
+    if not handle.done:
+        raise RuntimeError(f"request {uid} is {handle.status.value}; "
+                           "only FINISHED/SHED requests can be retired")
+    tokens = finished.pop(uid, None)
+    if tokens is None:
+        tokens = list(handle.tokens)
+    del engine.handles[uid]
+    engine._seen_uids.discard(uid)
+    return tokens
+
+
+def _cancellable(engine: Any, uid: int) -> RequestHandle:
+    """The handle of a request ``cancel`` may drop (QUEUED), else raise."""
+    handle = engine.handles.get(uid)
+    if handle is None:
+        raise KeyError(f"unknown uid {uid}")
+    if handle.done:
+        raise RuntimeError(f"request {uid} already {handle.status.value}")
+    if handle.status is RequestStatus.SUSPENDED:
+        raise NotImplementedError(TODO_PREEMPT)
+    if handle.status is not RequestStatus.QUEUED:
+        raise RuntimeError(
+            f"request {uid} is {handle.status.value}; only QUEUED requests "
+            "can be cancelled (a running one would need preemption, ROADMAP "
+            "Queue 1 item 6)")
+    return handle
+
+
 class ServeEngine:
     """Continuous batching over ``max_batch`` persistent slots.
 
@@ -235,20 +329,23 @@ class ServeEngine:
     runs ``decode_chunk`` steps per round.  With a ``PrecisionSchedule`` on
     the runtime, slots are tier-tagged and each chunk serves the occupied
     tiers together (``fused_decode``: one group-switching GEMM per
-    projection, else the per-group reference loop).  ``packed`` prepares
-    unprepared params as the byte-packed store.  Everything runs on
-    ``device`` (default cuda); the params must live there."""
+    projection, else the per-group reference loop), or one tier at a time
+    with ``mixed_tiers=False``.  A schedule with ``kv_tiers`` gets the mixed
+    per-slot KV arena (``kv_bits`` must then stay None).
+    ``scheduler_policy`` picks which waiting request takes a freed slot.
+    ``packed`` prepares unprepared params as the byte-packed store.
+    Everything runs on ``device`` (default cuda); the params must live
+    there."""
 
     def __init__(self, model: LM, params: Any, rt: Runtime, *,
                  max_batch: int = 8, max_len: int = 512,
                  kv_bits: Optional[int] = None, decode_chunk: int = 8,
                  prompt_bucket: int = 8, packed: bool = False,
-                 fused_decode: bool = True, mesh: Optional[Any] = None,
-                 device: Any = None) -> None:
+                 mixed_tiers: bool = True, fused_decode: bool = True,
+                 scheduler_policy: Optional[SchedulerPolicy] = None,
+                 mesh: Optional[Any] = None, device: Any = None) -> None:
         if mesh is not None:
             raise NotImplementedError(TODO_MESH)
-        if rt.schedule is not None and rt.schedule.kv_tiers is not None:
-            raise NotImplementedError(TODO_KV_TIERS)
         self.device = resolve_device(device)
         self.model = model
         self.rt = dataclasses.replace(rt, fused=fused_decode)
@@ -257,11 +354,25 @@ class ServeEngine:
         self.kv_bits = kv_bits
         self.decode_chunk = max(1, decode_chunk)
         self.prompt_bucket = max(1, prompt_bucket)
+        self.mixed_tiers = mixed_tiers
         self.params = _ensure_prepared(params, rt, model, packed)
         self.schedule = rt.schedule
+        # Tier-serialized mode: the tier the decode batch runs at (None
+        # while it is empty) and the one it ran at last.
+        self._active_tier: Optional[str] = None
+        self._last_tier: Optional[str] = None
+        arena_kv: Any = kv_bits
+        self._mixed_kv = False
+        if self.schedule is not None and self.schedule.kv_tiers is not None:
+            if kv_bits is not None:
+                raise ValueError(
+                    "kv_bits conflicts with the schedule's kv_tiers (per-"
+                    "request KV precision); drop one of the two")
+            arena_kv = self.schedule.kv_modes
+            self._mixed_kv = True
         self.arena = slots_lib.SlotArena(model, max_batch, max_len,
-                                         kv_bits=kv_bits, device=self.device)
-        self.scheduler = Scheduler(max_batch)
+                                         kv_bits=arena_kv, device=self.device)
+        self.scheduler = Scheduler(max_batch, policy=scheduler_policy)
         self.stats = EngineStats()
         self._layout_cache: Dict[Tuple[Optional[str], ...],
                                  Tuple[GroupLayout, npt.NDArray[np.int64]]] = {}
@@ -325,17 +436,79 @@ class ServeEngine:
                     f"request {request.uid}: unknown draft tier "
                     f"{request.spec.draft_tier!r}; engine serves "
                     f"{sorted(self.schedule.tiers)}")
+            if not self.mixed_tiers:
+                raise ValueError(
+                    f"request {request.uid}: speculative decoding needs "
+                    "mixed_tiers=True (draft rows are retagged in the "
+                    "decode group layout)")
         self._seen_uids.add(request.uid)
+        # Handle and scheduler share the SAME (normalized) Request, so a
+        # QUEUED set_tier re-tags the queue entry in place.
         handle = RequestHandle(request, self, submitted_at=self.clock)
         self.handles[request.uid] = handle
         self.scheduler.submit(request, now=self.clock)
         return handle
 
+    # -------------------------------------------------------------- migration
     def _set_tier(self, handle: RequestHandle, tier: str) -> None:
-        raise NotImplementedError(TODO_KV_TIERS)
+        """Move one request to another tier (``RequestHandle.set_tier``).
+
+        QUEUED: re-tag the waiting request (it prefills at the new tier).
+        RUNNING (mixed-tier mode only): requantize the slot's KV lanes in
+        place if the two tiers' KV codes differ, then re-tag the slot; the
+        weight plane prefix switches at the next group layout.  A finished
+        request raises."""
+        if self.schedule is None:
+            raise ValueError("set_tier needs an engine with a "
+                             "PrecisionSchedule")
+        if tier not in self.schedule.tiers:
+            raise ValueError(f"unknown tier {tier!r}; engine serves "
+                             f"{sorted(self.schedule.tiers)}")
+        if handle.done:
+            raise RuntimeError(
+                f"request {handle.uid} already {handle.status.value}; "
+                "cannot migrate its tier")
+        old = handle.request.tier
+        if tier == old:
+            return
+        if handle.status is RequestStatus.SUSPENDED:
+            raise NotImplementedError(TODO_PREEMPT)
+        if handle.status is RequestStatus.QUEUED:
+            handle.request.tier = tier      # shared with the queue entry
+            return
+        if not self.mixed_tiers:
+            raise RuntimeError(
+                "mid-stream tier migration needs mixed_tiers=True (a "
+                "serialized decode batch runs one tier at a time)")
+        slot = handle.slot
+        assert slot is not None
+        if self._mixed_kv:
+            code = self.schedule.kv_code_for(tier)
+            if code != self.schedule.kv_code_for(old):
+                with torch.inference_mode():
+                    slots_lib.migrate_kv_tier(self.arena.caches, slot, code)
+                self.stats.kv_migrations += 1
+        handle.request.tier = tier          # shared with the SlotState
+        self.arena.tiers[slot] = tier
+        self.stats.tier_migrations += 1
 
     def preempt(self, uid: int) -> None:
         raise NotImplementedError(TODO_PREEMPT)
+
+    def cancel(self, uid: int) -> None:
+        """Drop a QUEUED request: its queue entry and submission clock go,
+        and its handle turns SHED (no tokens)."""
+        handle = _cancellable(self, uid)
+        self.scheduler.cancel(uid)
+        handle._mark_shed(self.clock)
+        self.stats.sheds += 1
+
+    def retire(self, uid: int) -> List[int]:
+        """Drop a terminal (FINISHED or SHED) request's handle, results
+        entry and uid reservation, and return its tokens: a long-running
+        server's bound on per-request host memory.  The uid may be
+        submitted again."""
+        return _retire(self, self.scheduler.finished, uid)
 
     # ------------------------------------------------------------- scheduling
     def _bucket_pad(self, prompt: npt.NDArray[np.int32]
@@ -399,11 +572,14 @@ class ServeEngine:
     @torch.inference_mode()
     def _prefill_slot(self, slot: int, padded: npt.NDArray[np.int32],
                       plen: int, tier: Optional[str]) -> int:
-        """Reset one slot, prefill its right-padded prompt through a view of
-        the arena (written in place), return the first token: draw event 0
-        of the slot's sampling state."""
+        """Reset one slot (and in the mixed KV arena set its tier code),
+        prefill its right-padded prompt through a view of the arena
+        (written in place), return the first token: draw event 0 of the
+        slot's sampling state."""
         caches = slots_lib.slot_reset(self.arena.caches, slot)
         sub = slots_lib.slot_view(caches, slot)
+        if self._mixed_kv:
+            slots_lib.fill_kv_tier(sub, self.schedule.kv_code_for(tier))
         tokens = torch.from_numpy(padded).to(self.device)
         lengths = torch.tensor([plen], dtype=torch.int32, device=self.device)
         logits, _ = self.model.prefill(self.params, self.rt.for_tier(tier),
@@ -415,13 +591,29 @@ class ServeEngine:
         return int(tok[0])
 
     def _admit_free_slots(self) -> List[TokenEvent]:
-        """Fill free slots from the waiting queue and prefill each admitted
-        request; returns the prefill-emitted first tokens as events."""
+        """Fill free slots from the waiting queue (mixed-tier mode: the
+        policy's pick into any slot; serialized mode: only requests of the
+        batch's tier, the next tier chosen by the policy's pick when the
+        batch is empty) and prefill each admitted request; returns the
+        prefill-emitted first tokens as events."""
         events: List[TokenEvent] = []
         for slot in self.scheduler.free_slots():
-            req = self.scheduler.admit(slot, now=self.clock)
+            if self.schedule is None or self.mixed_tiers:
+                req = self.scheduler.admit(slot, now=self.clock)
+            else:
+                if self._active_tier is None:
+                    pick = self.scheduler.peek(now=self.clock)
+                    if pick is None:
+                        break
+                    if self.stats.decode_chunks:
+                        self.stats.tier_switches += \
+                            pick.tier != self._last_tier
+                    self._active_tier = pick.tier
+                req = self.scheduler.admit(slot, tier=self._active_tier,
+                                           now=self.clock)
             if req is None:
                 break
+            self._auto_select_tier(req)
             padded, plen = self._bucket_pad(np.asarray(req.prompt))
             self._load_sampling_state(slot, req)
             t0 = time.perf_counter()
@@ -440,6 +632,22 @@ class ServeEngine:
             self._tok[slot] = first
             self._remaining[slot] = state.remaining
         return events
+
+    def _auto_select_tier(self, req: Request) -> None:
+        """``SLOPolicy(auto_tier=True)``, mixed-tier mode: retag the
+        just-admitted deadlined request to the tier ``select_tier`` picks,
+        before its slot prefills, so the new tier sets its prefill, its
+        weight plane prefix and its KV precision."""
+        pol = self.scheduler.policy
+        if (self.schedule is None or not self.mixed_tiers
+                or not isinstance(pol, SLOPolicy) or not pol.auto_tier):
+            return
+        tier = pol.select_tier(req, self.handles[req.uid].submitted_at,
+                               self.clock)
+        if tier is not None and tier != req.tier \
+                and tier in self.schedule.tiers:
+            req.tier = tier          # shared with the handle
+            self.stats.tier_autoselects += 1
 
     def _release_done(self) -> None:
         """Release exhausted slots and clear their arena tier tags."""
@@ -483,9 +691,12 @@ class ServeEngine:
     def _runtime(self, tiers: Optional[Sequence[Optional[str]]] = None
                  ) -> Runtime:
         """The decode runtime: the group layout of ``tiers`` (default: the
-        arena's) on a tiered engine, else the engine's runtime."""
+        arena's) on a mixed-tier engine, the batch's one tier on a
+        serialized one, else the engine's runtime."""
         if self.schedule is None:
             return self.rt
+        if not self.mixed_tiers:
+            return self.rt.for_tier(self._active_tier)
         groups, perm = self._group_layout(tiers)
         return self.rt.for_groups(groups,
                                   torch.from_numpy(perm).to(self.device))
@@ -526,6 +737,11 @@ class ServeEngine:
         (or one speculative round, when an occupied slot's request sets
         ``spec``) over the occupied slots, and account its tokens.  Returns
         every token emitted this round in emission order."""
+        if self.schedule is not None and not self.mixed_tiers \
+                and not self.scheduler.occupied():
+            if self._active_tier is not None:     # the batch drained
+                self._last_tier = self._active_tier
+            self._active_tier = None
         events = self._admit_free_slots()
         self._release_done()                       # max_new_tokens == 1 cases
         occupied = self.scheduler.occupied()
@@ -546,6 +762,7 @@ class ServeEngine:
         self.stats.decode_slot_steps += int(actives.sum())
         self.stats.decode_idle_slot_steps += int((~actives).sum())
         if self.schedule is not None:
+            # Serialized mode tags every slot with the batch's tier too.
             occupied_tiers = {self.arena.tiers[slot] for slot, _ in occupied}
             self.stats.mixed_tier_chunks += len(occupied_tiers) > 1
             by_tier = self.stats.decode_steps_by_tier
@@ -738,3 +955,196 @@ class ServeEngine:
     @property
     def results(self) -> Dict[int, List[int]]:
         return dict(self.scheduler.finished)
+
+
+@dataclasses.dataclass
+class _BatchState:
+    """Host state of the batch the batch-at-a-time engine decodes."""
+
+    batch: List[Request]
+    caches: Any
+    tok: npt.NDArray[np.int32]     # [B], the tokens the next step emits
+    outs: List[List[int]]
+    step_idx: int
+    max_new: int
+
+
+class BatchServeEngine:
+    """The batch-at-a-time baseline: admit up to ``max_batch`` requests,
+    prefill them together (right-padded, per-row true lengths), decode
+    EVERY row up to the batch's largest ``max_new_tokens``, then form the
+    next batch.  Same ``submit`` / ``step`` / ``drain`` surface as
+    :class:`ServeEngine` (one ``step`` = one batch-wide decode step), so
+    the :class:`Engine` protocol covers both.  Outputs are exact per
+    request; finished rows keep costing decode steps until the batch's
+    last — the waste continuous batching removes.
+
+    On a tiered runtime every request runs at ONE tier (``tier``, the
+    schedule's default otherwise; ``set_tier`` always raises), and the KV
+    cache follows that tier's ``kv_tiers`` precision unless ``kv_bits`` is
+    given: the fixed-precision reference for the mixed per-slot arena.
+    Greedy only; runs on ``device`` (default cuda)."""
+
+    def __init__(self, model: LM, params: Any, rt: Runtime, *,
+                 max_batch: int = 8, max_len: int = 512,
+                 kv_bits: Optional[int] = None, packed: bool = False,
+                 tier: Optional[str] = None, device: Any = None) -> None:
+        if rt.schedule is not None and tier is not None \
+                and tier not in rt.schedule.tiers:
+            raise ValueError(f"unknown tier {tier!r}; engine serves "
+                             f"{sorted(rt.schedule.tiers)}")
+        self.device = resolve_device(device)
+        self.model = model
+        self.tier_name: Optional[str] = None
+        if rt.schedule is not None:
+            if kv_bits is None:
+                kv_bits = rt.schedule.kv_bits_for(tier)
+            self.tier_name = tier if tier is not None \
+                else rt.schedule.default_tier
+            rt = rt.for_tier(tier)
+        self.rt = rt
+        self.params = _ensure_prepared(params, rt, model, packed)
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.kv_bits = kv_bits
+        self.stats = EngineStats()
+        self.handles: Dict[int, RequestHandle] = {}
+        self.results: Dict[int, List[int]] = {}
+        self._queue: List[Request] = []
+        self._seen_uids: Set[int] = set()
+        self._active: Optional[_BatchState] = None
+
+    @property
+    def clock(self) -> float:
+        """Scheduler clock: decode steps executed (ServeEngine's units)."""
+        return float(self.stats.decode_steps)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self._queue) or self._active is not None
+
+    def submit(self, request: Request) -> RequestHandle:
+        """Queue one request (ServeEngine's checks); batches form in
+        submission order, ``max_batch`` at a time, when ``step`` finds no
+        active batch."""
+        _validate_request(request, self.max_len, self._seen_uids)
+        if request.spec is not None:
+            raise ValueError(
+                f"request {request.uid}: speculative decoding needs "
+                "ServeEngine (the batch baseline has no draft/verify step)")
+        if request.sampling is not None:
+            request.sampling.validate()
+            if request.sampling.temperature > 0.0:
+                raise ValueError(
+                    f"request {request.uid}: temperature sampling needs "
+                    "ServeEngine (the batch baseline decodes greedily); "
+                    "temperature=0.0 SamplingParams are accepted as greedy")
+        self._seen_uids.add(request.uid)
+        handle = RequestHandle(request, self, submitted_at=self.clock)
+        self.handles[request.uid] = handle
+        self._queue.append(request)
+        return handle
+
+    def _set_tier(self, handle: RequestHandle, tier: str) -> None:
+        raise RuntimeError(
+            "BatchServeEngine pins one tier for every request; per-request "
+            "tier migration needs ServeEngine (mixed_tiers=True)")
+
+    def cancel(self, uid: int) -> None:
+        """Drop a QUEUED (not yet batched) request; its handle turns SHED."""
+        handle = _cancellable(self, uid)
+        self._queue = [r for r in self._queue if r.uid != uid]
+        handle._mark_shed(self.clock)
+        self.stats.sheds += 1
+
+    def retire(self, uid: int) -> List[int]:
+        """As :meth:`ServeEngine.retire`."""
+        return _retire(self, self.results, uid)
+
+    @torch.inference_mode()
+    def _start_batch(self) -> None:
+        """Form and prefill the next batch (up to ``max_batch`` requests in
+        submission order, right-padded to the longest prompt)."""
+        batch = self._queue[:self.max_batch]
+        self._queue = self._queue[self.max_batch:]
+        b = len(batch)
+        plen = max(len(r.prompt) for r in batch)
+        prompts = np.zeros((b, plen), np.int32)
+        lengths = np.zeros((b,), np.int32)
+        for i, r in enumerate(batch):
+            prompts[i, :len(r.prompt)] = r.prompt
+            lengths[i] = len(r.prompt)
+        t0 = time.perf_counter()
+        caches = self.model.init_cache(b, self.max_len, kv_bits=self.kv_bits,
+                                       device=self.device)
+        logits, caches = self.model.prefill(
+            self.params, self.rt, caches,
+            tokens=torch.from_numpy(prompts).to(self.device),
+            seq_lengths=torch.from_numpy(lengths).to(self.device))
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        tok_h = tok.cpu().numpy()
+        self.stats.prefill_seconds += time.perf_counter() - t0
+        self.stats.prefills += b
+        self.stats.prefill_tokens += int(lengths.sum())
+        for i, r in enumerate(batch):
+            self.handles[r.uid]._mark_admitted(i, self.clock)
+        self._active = _BatchState(
+            batch=batch, caches=caches, tok=tok_h,
+            outs=[[] for _ in range(b)], step_idx=0,
+            max_new=max(r.max_new_tokens for r in batch))
+
+    @torch.inference_mode()
+    def step(self) -> List[TokenEvent]:
+        """One batch-wide decode step (forming a new batch when idle): emit
+        the current token of every request still owed one, then advance the
+        whole batch.  Returns the emitted tokens; ``[]`` when idle."""
+        if self._active is None:
+            if not self._queue:
+                return []
+            self._start_batch()
+        a = self._active
+        assert a is not None
+        events: List[TokenEvent] = []
+        for i, r in enumerate(a.batch):
+            if a.step_idx < r.max_new_tokens:
+                token = int(a.tok[i])
+                a.outs[i].append(token)
+                event = TokenEvent(uid=r.uid, token=token, index=a.step_idx,
+                                   tier=self.tier_name,
+                                   final=a.step_idx == r.max_new_tokens - 1)
+                events.append(event)
+                self.handles[r.uid]._push(event, self.clock)
+        t0 = time.perf_counter()
+        logits, a.caches = self.model.decode_step(
+            self.params, self.rt, a.caches,
+            tokens=torch.from_numpy(a.tok[:, None]).to(self.device))
+        a.tok = torch.argmax(logits[:, -1], dim=-1).to(
+            torch.int32).cpu().numpy()
+        self.stats.decode_seconds += time.perf_counter() - t0
+        self.stats.decode_steps += 1
+        self.stats.decode_chunks += 1
+        self.stats.decode_slot_steps += len(a.batch)
+        a.step_idx += 1
+        if a.step_idx >= a.max_new:
+            for i, r in enumerate(a.batch):
+                self.results[r.uid] = a.outs[i][:r.max_new_tokens]
+            self._active = None
+        return events
+
+    def drain(self) -> Dict[int, List[int]]:
+        """Step until idle; returns {uid: tokens} for finished requests."""
+        while self.has_work:
+            self.step()
+        return dict(self.results)
+
+    def run(self, requests: Sequence[Request]) -> Dict[int, List[int]]:
+        """Serve the list batch by batch; returns {uid: tokens}.  A bad
+        request anywhere in the list raises before any is queued."""
+        seen = set(self._seen_uids)
+        for r in requests:
+            _validate_request(r, self.max_len, seen)
+            seen.add(r.uid)
+        for r in requests:
+            self.submit(r)
+        finished = self.drain()
+        return {r.uid: finished[r.uid] for r in requests}

@@ -1,8 +1,7 @@
 """Request handles: the streaming half of the serving API (port of
-``repro.serve.handle``; pure host bookkeeping).  The port's engine drives
-``QUEUED -> RUNNING -> FINISHED``; ``SUSPENDED`` and ``SHED`` arrive with
-preemption and admission control (ROADMAP Queue 1 item 7), and
-``set_tier`` raises until KV migration is ported.
+``repro.serve.handle``; pure host bookkeeping).  The port's engines drive
+``QUEUED -> RUNNING -> FINISHED`` and ``QUEUED -> SHED`` (``cancel``);
+``SUSPENDED`` arrives with preemption (ROADMAP Queue 1 item 6).
 
 ``Engine.submit`` returns a :class:`RequestHandle` — the caller's view of
 one in-flight request.  The handle exposes
@@ -196,6 +195,11 @@ class RequestHandle:
         self.slot = slot
         if self.admitted_at is None:     # resumes keep the FIRST admission
             self.admitted_at = now
+
+    def _mark_shed(self, now: float) -> None:
+        self.status = RequestStatus.SHED
+        self.slot = None
+        self.finished_at = now
 
     def _push(self, event: TokenEvent, now: float,
               defer: Optional[Callable[[BaseException], None]] = None

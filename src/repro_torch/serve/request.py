@@ -17,9 +17,10 @@ class Request:
 
     ``tier`` names the precision tier on engines with a
     ``PrecisionSchedule`` (None = the schedule's default tier; must stay
-    None on untiered engines).  ``deadline`` and ``tenant`` are carried for
-    SLO-aware admission, which the port does not have yet: its FIFO
-    admission ignores them.  ``sampling`` selects seeded temperature /
+    None on untiered engines).  ``deadline`` (scheduler-clock ticks after
+    submission) is what ``SLOPolicy`` prices; FIFO admission ignores it.
+    ``tenant`` is carried for per-tenant fairness (ROADMAP Queue 1 item
+    6).  ``sampling`` selects seeded temperature /
     top-k sampling (None = greedy); ``spec`` turns on self-speculative
     decoding at a draft tier of the engine's schedule."""
 

@@ -6,7 +6,9 @@ The arena is the model's cache list (``LM.init_cache``): one
 ``slot_view`` cuts one slot out as a batch-1 cache whose tensors are VIEWS
 of the arena, so a prefill through the view writes the arena in place;
 ``slot_write`` copies a batch-1 cache into a slot and ``slot_reset`` zeroes
-one slot's state, lengths included.  The host-side ``SlotArena.tiers``
+one slot's state, lengths included.  In the mixed per-slot KV arena
+``fill_kv_tier`` sets an admitted slot's tier code and ``migrate_kv_tier``
+requantizes a live slot at a new one.  The host-side ``SlotArena.tiers``
 vector records which precision tier holds each slot.
 
 Speculative rollback.  The reference merges the whole pre-draft arena back
@@ -21,7 +23,6 @@ the rejected positions.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -29,11 +30,6 @@ import torch
 from repro_torch.models.layers import KVCache
 
 Caches = List[Dict[str, KVCache]]
-
-
-def _tensors(c: KVCache):
-    return [getattr(c, f.name) for f in dataclasses.fields(c)
-            if getattr(c, f.name) is not None]
 
 
 def slot_view(caches: Caches, slot: int) -> Caches:
@@ -46,16 +42,18 @@ def slot_write(caches: Caches, sub: Caches, slot: int) -> Caches:
     """Copy a batch-1 cache list into slot ``slot`` of the arena."""
     for layer, sub_layer in zip(caches, sub):
         for pos, c in layer.items():
-            for dst, src in zip(_tensors(c.slot(slot)), _tensors(sub_layer[pos])):
+            for dst, src in zip(c.slot(slot).tensors(), sub_layer[pos].tensors()):
                 dst.copy_(src)
     return caches
 
 
 def slot_reset(caches: Caches, slot: int) -> Caches:
-    """Zero one slot's cache state (lengths included), in place."""
+    """Zero one slot's cache state (lengths and, in the mixed arena, its
+    tier code included), in place.  A zero code is no tier: the engine
+    sets the slot's code (:func:`fill_kv_tier`) before the prefill writes."""
     for layer in caches:
         for c in layer.values():
-            for t in _tensors(c.slot(slot)):
+            for t in c.slot(slot).tensors():
                 t.zero_()
     return caches
 
@@ -104,13 +102,40 @@ def select_verify_step(caches: Caches, step_index: torch.Tensor) -> Caches:
     return caches
 
 
+def fill_kv_tier(caches: Caches, code: int) -> Caches:
+    """Set every mixed-mode cache's per-slot tier code(s) to ``code`` (16 =
+    bf16, 8, 4), in place.  Applied to a slot view right after the slot
+    reset, so the admitted request's K/V rows are encoded at ITS code from
+    the first prefill write on.  No-op for homogeneous caches."""
+    for layer in caches:
+        for c in layer.values():
+            if c.mixed:
+                c.kv_bits.fill_(code)
+    return caches
+
+
+def migrate_kv_tier(caches: Caches, slot: int, code: int) -> Caches:
+    """Requantize ONE slot's live KV lanes at a new tier code, in place
+    (the KV half of a mid-stream tier migration): the slot's lanes are read
+    at their current code and re-encoded at ``code``
+    (``KVCache.requantize``).  Lengths and every other slot are untouched.
+    No-op for homogeneous caches."""
+    for layer in slot_view(caches, slot):
+        for c in layer.values():
+            if c.mixed:
+                c.requantize(code)
+    return caches
+
+
 class SlotArena:
     """Owns the arena cache: ``max_slots`` persistent decode slots sharing
-    one pre-allocated KV cache, each with its own fill point.  ``tiers`` is
-    the host-side slot -> tier-name vector (None = slot free)."""
+    one pre-allocated KV cache, each with its own fill point.  ``kv_bits``
+    follows ``KVCache.create``: None / 8 / 4, or a tuple of tier codes for
+    the mixed per-slot arena.  ``tiers`` is the host-side slot -> tier-name
+    vector (None = slot free)."""
 
     def __init__(self, model: Any, max_slots: int, max_len: int,
-                 kv_bits: Optional[int] = None, device: Any = None) -> None:
+                 kv_bits: Any = None, device: Any = None) -> None:
         self.max_slots = max_slots
         self.max_len = max_len
         self.kv_bits = kv_bits

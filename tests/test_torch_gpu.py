@@ -543,3 +543,66 @@ def test_sampled_streams_cuda_equal_decomposed(gen):
         outs.append(_tiered(model, params, backend).run(reqs))
         assert any(_build.LAUNCHES.values()) == (backend == "cuda")
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("m", [65, 192, 512])
+def test_prefill_rows_past_one_row_tile(gen, m):
+    """Kernels 1, 3 and 5 at the rows of a BatchServeEngine prefill (rows x
+    padded prompt, up to 8 x 64): more than one 64-row tile."""
+    k, n = 4096, 1024
+    assert -(-m // bsm.plan(m, k, n, 4).bm) >= 2
+    for dtype in (torch.float32, torch.bfloat16):
+        for bits, signed in ((8, True), (4, True), (2, True), (8, False)):
+            q = float((1 << (bits - 1)) - 1 if signed else (1 << bits) - 1)
+            x = _act_rows(gen, m, k, [q], signed).to(dtype)
+            got = _counted("act_quant", lambda: aq.act_quant(
+                x, bits=bits, signed=signed))
+            want = ref.act_quant_ref(x, bits=bits, signed=signed)
+            assert torch.equal(got[0], want[0]) and \
+                torch.equal(got[1], want[1]), (dtype, bits, signed)
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    planes = decompose.decompose_superplanes(torch.randint(
+        -128, 128, (k, n), dtype=torch.int8, device="cuda",
+        generator=gen)).contiguous()
+    for p in (1, 2, 4):
+        sh = decompose.prefix_shifts(p)
+        got = _counted("bitserial_matmul",
+                       lambda: bsm.bitserial_matmul(x, planes[:p], sh))
+        assert torch.equal(got, ref.bitserial_matmul_ref(x, planes[:p], sh))
+    packed = ops.pack_planes(planes.flip(0), 8)
+    for eff in (2, 4, 8):
+        got = _counted("packed_bitserial_matmul",
+                       lambda: bsm.packed_bitserial_matmul(
+                           x, packed, w_bits=8, eff_bits=eff))
+        assert torch.equal(got, ref.packed_bitserial_matmul_ref(x, packed, 8,
+                                                                eff))
+
+
+def test_mixed_kv_arena_on_cuda_equals_cpu(gen):
+    """The mixed byte-lane arena's encode (prefill, masked append) and every
+    migration pair, on the card and on the CPU from the same inputs: every
+    tensor equal (plain torch on both; no kernel)."""
+    from repro_torch.models.layers import KVCache
+    from repro_torch.serve import slots as slots_lib
+    b, s, kvh, dh = 3, 40, 8, 128
+    k, v = (torch.randn((b, 24, kvh, dh), device="cuda", generator=gen
+                        ).to(torch.bfloat16) for _ in range(2))
+    k1, v1 = (torch.randn((b, 1, kvh, dh), device="cuda", generator=gen
+                          ).to(torch.bfloat16) for _ in range(2))
+    for src in (16, 8, 4):
+        for dst in (16, 8, 4):
+            arenas = []
+            for dev in ("cuda", "cpu"):
+                c = KVCache.create(b, s, kvh, dh, kv_bits=(16, 8, 4),
+                                   device=dev)
+                c.kv_bits.copy_(torch.tensor([8, src, 4]))
+                c.update(k.to(dev), v.to(dev), 0,
+                         new_length=torch.tensor([24, 9, 17], device=dev))
+                c.append(k1.to(dev), v1.to(dev),
+                         active=torch.tensor([True, False, True], device=dev))
+                arena = [{"pos0": c}]
+                slots_lib.migrate_kv_tier(arena, 1, dst)
+                arenas.append(c)
+            for x, y in zip(arenas[0].tensors(), arenas[1].tensors()):
+                assert torch.equal(x.cpu(), y), (src, dst)

@@ -126,17 +126,22 @@ def test_submit_validation_and_unported_features(setup):
     with pytest.raises(ValueError, match="unknown draft tier"):
         eng.submit(Request(uid=5, prompt=np.ones((3,), np.int32),
                            spec=SpecConfig("3/3")))
-    with pytest.raises(NotImplementedError, match="set_tier"):
-        eng.handles[0].set_tier("2/2")
+    # Tier migration and per-tier KV precision are served
+    # (tests/test_torch_tiers.py): set_tier re-tags a QUEUED request, and
+    # kv_tiers gets the mixed per-slot KV arena.
+    eng.handles[0].set_tier("2/2")
+    assert eng.handles[0].tier == "2/2"
+    assert eng.scheduler.waiting[0].tier == "2/2"
     with pytest.raises(NotImplementedError, match="item 6"):
         eng.preempt(0)
     with pytest.raises(NotImplementedError, match="item 10"):
         _tiered_engine(model, params, mesh=object())
     kv = uniform_schedule(TIERS, backend="cuda",
                           kv_tiers={"8/8": None, "4/4": 8, "2/2": 8})
-    with pytest.raises(NotImplementedError, match="kv_tiers"):
-        ServeEngine(model, params, Runtime(policy=kv.policy_for(), schedule=kv),
-                    device="cpu")
+    mixed = ServeEngine(model, params, Runtime(policy=kv.policy_for(),
+                                               schedule=kv), device="cpu")
+    assert all(c.mixed and c.modes == (16, 8) for layer in mixed.arena.caches
+               for c in layer.values())
     plain = ServeEngine(model, params,
                         Runtime(policy=uniform_policy(8, 8, backend="cuda")),
                         device="cpu", **ENGINE_KW)
@@ -206,7 +211,16 @@ def test_scheduler_fifo():
     ["--backend", "dense", "--requests", "2"],
     ["--tiers", "8/8", "4/4", "2/2", "--packed", "--requests", "4"],
     ["--w-bits", "6", "--packed", "--backend", "decomposed", "--requests",
-     "3"]])
+     "3"],
+    ["--w-bits", "4", "--kv-bits", "4", "--requests", "3"],
+    ["--tiers", "8/8", "4/4", "2/2", "--kv-tiers", "bf16", "8", "4",
+     "--requests", "5"],
+    ["--tiers", "8/8", "4/4", "2/2", "--serialize-tiers", "--requests", "5"],
+    ["--baseline", "--kv-bits", "8", "--requests", "5"],
+    ["--tiers", "8/8", "4/4", "2/2", "--slo", "--auto-tier", "--requests",
+     "6"],
+    ["--tiers", "8/8", "4/4", "2/2", "--kv-tiers", "bf16", "8", "4",
+     "--migrate-demo", "--decode-chunk", "2", "--requests", "4"]])
 def test_serve_cli_on_cpu(argv):
     out = serve_cli.main(["--reduced", "--device", "cpu", "--max-new", "5",
                           "--max-len", "32"] + argv)
