@@ -100,6 +100,31 @@ Phases, in order (any failure exits non-zero and prints no result line):
             streams, and the migrations' ms (CUDA events) are printed; (a)
             to (c) replayed on the plain ``decomposed`` backend launch
             nothing and give equal streams.
+4d. overload preemption, spill and resume on the phase-4c model and
+            schedule (full-width qwen3-8b, 36 layers, seed 0, int8 planes,
+            the mixed KV arena, max_batch 8, the same 9 requests).  (a)
+            After the first round uid 0 moves to 2/2 (its bf16 lanes
+            requantized to int4), then uids 0, 1 (int8; written to a
+            temporary spill dir), 2 (int4) and 3 (bf16) are preempted and
+            resume in other slots.  The streams must equal a run with the
+            same migration and no preemption (which must take no telemetry
+            hook and make no device sync) and, but uid 0's, phase 4c's;
+            every prefill launches kernels 1 and 3 only (145 and 253), every
+            resume nothing; the spill dir ends empty.  Prints the snapshot
+            bytes and the ms of each preemption (the host copy), resume,
+            and the spill's write and read.  (c) The same with
+            ``Telemetry(profile=True)``: equal streams; prints the
+            profiler's decode-chunk wall and device seconds and
+            ``decode_dispatch_count`` of every layout, which must be 398;
+            writes the Prometheus text and the Chrome trace to the
+            git-ignored ``build/overload/``.  (b) ``SLOPolicy(preempt, shed,
+            tenant_weights={"a": 2.0}, time_slice=2)`` on the shape of the
+            reference command line's overload stream (12 requests, two
+            tenants): every FINISHED stream equals an uninterrupted run's,
+            with sheds and time-slice preemptions; prints the counters.
+            (d) At 4 layers, for both stores: (a) and (c) on ``cuda`` and on
+            the plain ``decomposed`` backend, which must launch nothing,
+            with equal streams.
 5. fixed    the quickstart form, --w-bits 4 with the int8 KV cache and
             then the int4 one (--kv-bits 8, 4; LSB-first planes), at full
             width with the depth cut to 4 layers; for each, the ``cuda``
@@ -125,6 +150,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import pathlib
 import re
 import statistics
@@ -1442,7 +1468,8 @@ def phase_tiers(mixed: dict, card: str) -> dict:
                                                mig_plain["launches"]},
                                      "tokens": mig_plain["tokens"]}, mig)
     del model4, params4
-    return {**st, "arena_bytes": res["arena_bytes"],
+    return {**st, "streams": res["tokens"],
+            "arena_bytes": res["arena_bytes"],
             "bf16_arena_bytes": bf16_arena,
             "migration_ms": mig["migration_ms"]}
 
@@ -1472,6 +1499,336 @@ def _profile_tier_step(model, params, sched) -> None:
     log("[tiers] profile of one decode chunk: " + json.dumps({
         "steps": 8, "wall_ms": wall, "device_ops_per_step": len(spans) / 8,
         "device_busy_share": busy / 1e3 / wall if spans else "not measured"}))
+
+
+# --------------------------------------------------------------- phase 4d
+# Phase 4d's explicit schedule: after the first round, uid 0 (8/8, bf16
+# KV) moves to 2/2 (its lanes requantized to int4), then uids 0, 1 (4/4,
+# int8; spilled), 2 (2/2, int4) and 3 (8/8, bf16) are preempted.
+OVERLOAD_MIGRATE = (0, "2/2")
+OVERLOAD_PREEMPTS = (0, 1, 2, 3)
+OVERLOAD_SPILLED = 1
+# Phase 4d (b)'s policy (the reference command line's --slo --preempt
+# --shed, with tenant weights and time slices).
+OVERLOAD_POLICY = dict(preempt=True, shed=True, tenant_weights={"a": 2.0},
+                       time_slice=2)
+
+
+def _launch_delta(fn, deltas: list, sync_ms: list = None):
+    """``fn`` wrapped to append the kernel launches of each call to
+    ``deltas`` (and, given ``sync_ms``, its ms between two syncs)."""
+    from repro_torch.kernels import _build
+
+    def wrapped(*args, **kw):
+        before = dict(_build.LAUNCHES)
+        if sync_ms is not None:
+            sync()
+            t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        if sync_ms is not None:
+            sync()
+            sync_ms.append(1e3 * (time.perf_counter() - t0))
+        deltas.append({k: v - before[k] for k, v in _build.LAUNCHES.items()})
+        return out
+    return wrapped
+
+
+def _preempt_schedule(model, params, rt, reqs, *, preempt: bool,
+                      telemetry=None, timed: bool = False) -> dict:
+    """Serve ``reqs`` through phase 4d (a)'s schedule (``preempt`` False:
+    the same migration, no preemption).  Records every prefill's and every
+    resume's kernel launches, the slots each preempted request left and
+    resumed in, and (``timed``) the ms of each preemption (the host copy),
+    each resume, the spill's write (preemption + the writer) and read."""
+    import tempfile
+
+    from repro_torch.kernels import _build
+    from repro_torch.serve import engine as engine_mod
+    rec = {"prefill": [], "resume": [], "moves": {}, "nbytes": {},
+           "preempt_ms": {}, "resume_ms": [], "read_ms": []}
+    with tempfile.TemporaryDirectory() as spill:
+        eng = engine_mod.ServeEngine(model, params, rt, spill_dir=spill,
+                                     telemetry=telemetry, **MIXED_KW)
+        eng._prefill_slot = _launch_delta(eng._prefill_slot, rec["prefill"])
+        resume = eng._resume_into
+
+        def resuming(slot, req, sus):
+            rec["moves"][req.uid].append(slot)
+            return resume(slot, req, sus)
+        eng._resume_into = _launch_delta(
+            resuming, rec["resume"], rec["resume_ms"] if timed else None)
+        eng._unspill = _launch_delta(eng._unspill, [],
+                                     rec["read_ms"] if timed else None)
+        handles = {r.uid: eng.submit(r) for r in reqs}
+        _build.reset_launches()
+        eng.step()
+        uid, tier = OVERLOAD_MIGRATE
+        handles[uid].set_tier(tier)
+        for uid in OVERLOAD_PREEMPTS if preempt else ():
+            rec["moves"][uid] = [handles[uid].slot]
+            eng._spill_dir = spill if uid == OVERLOAD_SPILLED else None
+            if timed:
+                sync()
+            t0 = time.perf_counter()
+            rec["nbytes"][uid] = eng.preempt(uid).nbytes
+            if uid == OVERLOAD_SPILLED:
+                eng._spiller.wait()
+            rec["preempt_ms"][uid] = 1e3 * (time.perf_counter() - t0)
+        eng._spill_dir = spill
+        out = eng.drain()
+        rec["launches"] = dict(_build.LAUNCHES)
+        rec["spill_left"] = os.listdir(spill)
+    rec.update(tokens=out, stats=eng.stats, engine=eng)
+    return rec
+
+
+def _check_schedule(label: str, rec: dict, layers: int,
+                    packed: bool = False) -> None:
+    """Every fresh admission prefilled through kernels 1 and 3 (5 for the
+    packed store) only, their launches for ``layers`` layers and the head;
+    every resume launched nothing; every preempted request resumed (one in
+    another slot); the spill dir ended empty."""
+    st = rec["stats"]
+    gemm = "packed_bitserial_matmul" if packed else "bitserial_matmul"
+    want = {"act_quant": 4 * layers + 1, gemm: 7 * layers + 1}
+    for delta in rec["prefill"]:
+        got = {k: v for k, v in delta.items() if v}
+        if got != want:
+            raise AssertionError(f"{label}: a prefill launched {got}, "
+                                 f"wanted {want}")
+    for delta in rec["resume"]:
+        if any(delta.values()):
+            raise AssertionError(f"{label}: a resume launched {delta}")
+    if (st.prefills, st.preemptions, st.resumes) != (
+            9, len(OVERLOAD_PREEMPTS), len(OVERLOAD_PREEMPTS)):
+        raise AssertionError(f"{label}: {st.prefills} prefills, "
+                             f"{st.preemptions} preemptions, {st.resumes} "
+                             "resumes")
+    if not any(m[0] != m[1] for m in rec["moves"].values()):
+        raise AssertionError(f"{label}: no request resumed in another slot")
+    if rec["spill_left"]:
+        raise AssertionError(f"{label}: spill dirs left: "
+                             f"{rec['spill_left']}")
+    log(f"[{label}] {len(rec['prefill'])} prefills launched {want} each, "
+        f"{len(rec['resume'])} resumes launched nothing; slots (from, to): "
+        f"{rec['moves']}")
+
+
+class _SyncSpy:
+    """Counts the device syncs made while installed: torch.cuda.synchronize,
+    Event.synchronize and Event.elapsed_time."""
+
+    def __enter__(self):
+        import torch
+        self.calls = 0
+        self._saved = [(torch.cuda, "synchronize"),
+                       (torch.cuda.Event, "synchronize"),
+                       (torch.cuda.Event, "elapsed_time")]
+        self._saved = [(o, n, getattr(o, n)) for o, n in self._saved]
+        for obj, name, fn in self._saved:
+            setattr(obj, name, self._counting(fn))
+        return self
+
+    def _counting(self, fn):
+        def counted(*a, **k):
+            self.calls += 1
+            return fn(*a, **k)
+        return counted
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+
+def _overload_requests(vocab: int):
+    """Phase 4d (b)'s stream, the shape of the reference command line's
+    --slo --preempt --shed stream (--requests 12, --max-new 16,
+    --decode-chunk 8): every 3rd request urgent (deadline 20 ticks, 4
+    tokens, submitted once the clock reaches 16; the last one 48 tokens,
+    which no tier serves in time), the others best-effort with 48 tokens;
+    tenants "a" and "b" in turn."""
+    import numpy as np
+    from repro_torch.serve.request import Request
+    rng = np.random.default_rng(3)
+    urgent = [i for i in range(12) if i % 3 == 2]
+    reqs = []
+    for i in range(12):
+        reqs.append(Request(
+            uid=i, prompt=rng.integers(0, vocab, size=int(rng.integers(
+                16, 65)), dtype=np.int64).astype(np.int32),
+            max_new_tokens=(48 if i not in urgent or i == urgent[-1] else 4),
+            tier=list(TIERS)[i % 3], deadline=20.0 if i in urgent else None,
+            tenant="ab"[i % 2]))
+    return reqs
+
+
+def _serve_overload(model, params, rt, reqs, policy) -> dict:
+    """Submit the best-effort requests, the urgent ones once the clock
+    reaches two chunks, and step until idle."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import engine as engine_mod
+    eng = engine_mod.ServeEngine(model, params, rt, scheduler_policy=policy,
+                                 **MIXED_KW)
+    held = [r for r in reqs if r.deadline is not None]
+    handles = {r.uid: eng.submit(r) for r in reqs if r.deadline is None}
+    _build.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    while eng.has_work or held:
+        eng.step()
+        if held and (eng.clock >= 2 * MIXED_KW["decode_chunk"]
+                     or not eng.has_work):
+            handles.update({r.uid: eng.submit(r) for r in held})
+            held = []
+    sync()
+    return {"handles": handles, "stats": eng.stats,
+            "wall_s": time.perf_counter() - t0,
+            "launches": dict(_build.LAUNCHES)}
+
+
+def phase_overload(tiers: dict, card: str) -> dict:
+    """Phase 4d: preemption, spill and resume, the overload policy and the
+    telemetry on the phase-4c model and schedule; at 4 layers the plain
+    replays."""
+    import dataclasses
+
+    import torch
+    from repro_torch import telemetry as telemetry_mod
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import uniform_schedule
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.handle import RequestStatus
+    from repro_torch.serve.scheduler import SLOPolicy
+    from repro_torch.telemetry import Telemetry
+    sched = uniform_schedule(TIERS, backend="cuda", kv_tiers=KV_TIERS)
+    rt = Runtime(policy=sched.policy_for(), schedule=sched)
+    layers = get_config("qwen3-8b").num_layers
+    cfg, model, params = _build_model(layers, sched.prepare_policy(),
+                                      superplane=True, seed=0)
+    reqs = _requests(9, cfg.vocab_size, 16, list(TIERS), seed=1)
+    # The same migration without preemption, telemetry off: no hook, no
+    # sync by the engine.
+    hooks = telemetry_mod.HOOK_CALLS
+    with _SyncSpy() as spy:
+        ref = _preempt_schedule(model, params, rt, reqs, preempt=False)
+    if telemetry_mod.HOOK_CALLS != hooks or spy.calls:
+        raise AssertionError(
+            f"telemetry off: {telemetry_mod.HOOK_CALLS - hooks} hook calls, "
+            f"{spy.calls} device syncs")
+    log(f"[overload] telemetry off: 0 hook calls, 0 device syncs in a "
+        "full-width run")
+    moved = OVERLOAD_MIGRATE[0]
+    _check_same("overload-migrated", {u: t for u, t in ref["tokens"].items()
+                                      if u != moved},
+                {u: t for u, t in tiers["streams"].items() if u != moved},
+                "phase tiers' (all but the migrated uid)")
+    # (a) The preemptions, timed.
+    run = _preempt_schedule(model, params, rt, reqs, preempt=True,
+                            timed=True)
+    _check_same("overload-preempt", run["tokens"], ref["tokens"],
+                "the uninterrupted run's")
+    _check_schedule("overload-preempt", run, layers)
+    _check_launches("overload", run["launches"],
+                    used=[k for k, v in PATH_OF.items() if v == "mixed"],
+                    unused=("packed_bitserial_matmul", "grouped_matmul"))
+    timing = {"snapshot_bytes": run["nbytes"],
+              "preempt_ms": {u: ms for u, ms in run["preempt_ms"].items()
+                             if u != OVERLOAD_SPILLED},
+              "resume_ms": run["resume_ms"],
+              "spill_write_ms": run["preempt_ms"][OVERLOAD_SPILLED],
+              "spill_read_ms": run["read_ms"], "card": card}
+    log("[overload] " + json.dumps(timing))
+    # (c) The same with profiled telemetry.
+    tele = Telemetry(profile=True)
+    prof_run = _preempt_schedule(model, params, rt, reqs, preempt=True,
+                                 telemetry=tele)
+    _check_same("overload-telemetry", prof_run["tokens"], run["tokens"],
+                "the preemption run's without telemetry")
+    prof = tele.profiler.snapshot()
+    counts = prof["decode_dispatches"]
+    step_launches = (4 * layers + 1) + (7 * layers + 1)
+    if not counts or set(counts.values()) != {step_launches} or not any(
+            label.count("+") == 2 for label in counts):
+        raise AssertionError(f"decode_dispatch_count per layout: {counts}, "
+                             f"wanted {step_launches} at every layout, a "
+                             "three-tier one among them")
+    chunk = prof["phases"]["decode_chunk"]
+    log("[overload] profiler " + json.dumps({
+        "decode_chunks": chunk["calls"],
+        "decode_chunk_wall_s": chunk["total_s"],
+        "decode_chunk_device_s": chunk["device_s"],
+        "device_over_wall": chunk["device_s"] / chunk["total_s"],
+        "engine_decode_s": prof_run["stats"].decode_seconds,
+        "decode_dispatches": counts, "phases": prof["phases"],
+        "card": card}))
+    out_dir = ROOT / "build" / "overload"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "metrics.prom").write_text(tele.prometheus())
+    tele.write_trace(str(out_dir / "trace.json"))
+    log(f"[overload] wrote {out_dir / 'metrics.prom'} and "
+        f"{out_dir / 'trace.json'} ({len(tele.tracer.chrome_events())} "
+        "events)")
+    del ref, prof_run
+    # (b) The overload policy against an uninterrupted run.
+    oreqs = _overload_requests(cfg.vocab_size)
+    policy = SLOPolicy(sched, mac_counts=cfg.quant_layer_macs(),
+                       preempt_slack=2.0 * MIXED_KW["decode_chunk"],
+                       **OVERLOAD_POLICY)
+    over = _serve_overload(model, params, rt, oreqs, policy)
+    plain = _serve(engine_mod.ServeEngine(model, params, rt, **MIXED_KW),
+                   [dataclasses.replace(r, deadline=None) for r in oreqs],
+                   "overload-uninterrupted")["tokens"]
+    finished = {u: h.tokens for u, h in over["handles"].items()
+                if h.status is RequestStatus.FINISHED}
+    _check_same("overload-policy", finished,
+                {u: plain[u] for u in finished}, "the uninterrupted run's")
+    st = over["stats"]
+    counters = {k: getattr(st, k) for k in (
+        "preemptions", "resumes", "sheds", "time_slice_preemptions",
+        "spill_bytes", "prefills", "decode_steps")}
+    if not (st.sheds and st.time_slice_preemptions
+            and st.preemptions == st.resumes):
+        raise AssertionError(f"overload-policy: counters {counters}")
+    log("[overload] policy " + json.dumps({
+        **counters, "finished": len(finished),
+        "shed_uids": sorted(u for u, h in over["handles"].items()
+                            if h.status is RequestStatus.SHED),
+        "wall_s": over["wall_s"], "card": card}))
+    launches = run["launches"]
+    del params, over
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) At 4 layers, both stores: (a) and (c) on the plain backend launch
+    # nothing and give the kernels' streams.
+    plain_sched = uniform_schedule(TIERS, backend="decomposed",
+                                   kv_tiers=KV_TIERS)
+    rt_plain = Runtime(policy=plain_sched.policy_for(), schedule=plain_sched)
+    for packed in (False, True):
+        label = f"overload-4-{'packed' if packed else 'planes'}"
+        _, model4, params4 = _build_model(4, sched.prepare_policy(),
+                                          superplane=True, seed=0,
+                                          packed=packed)
+        runs = {}
+        for name, r in (("cuda", rt), ("plain", rt_plain)):
+            runs[name] = _preempt_schedule(model4, params4, r, reqs,
+                                           preempt=True)
+            if name == "cuda":
+                _check_schedule(f"{label}-{name}", runs[name], 4, packed)
+            t = Telemetry(profile=True)
+            again = _preempt_schedule(model4, params4, r, reqs, preempt=True,
+                                      telemetry=t)
+            _check_same(f"{label}-{name}-telemetry", again["tokens"],
+                        runs[name]["tokens"], "the run without telemetry")
+            if name == "plain" and any(again["launches"].values()):
+                raise AssertionError(f"{label}: the plain run with "
+                                     "telemetry launched kernels")
+        _check_plain(label, {"stats": {"launches": runs["plain"]["launches"]},
+                             "tokens": runs["plain"]["tokens"]},
+                     {"tokens": runs["cuda"]["tokens"]})
+        del model4, params4, runs
+    return {"launches": launches, **timing}
+
 
 
 def phase_fixed() -> dict:
@@ -1782,6 +2139,8 @@ def main() -> int:
                                                    out["build"]["card"])),
                        ("tiers", lambda: phase_tiers(out["mixed"],
                                                      out["build"]["card"])),
+                       ("overload", lambda: phase_overload(
+                           out["tiers"], out["build"]["card"])),
                        ("fixed", phase_fixed), ("times", phase_times)):
         t = time.perf_counter()
         out[phase] = run()
@@ -1806,7 +2165,7 @@ def main() -> int:
             "library_ms": t["library_ms"], "shape": t["shape"],
             "launches_by_path": {path: out[path]["launches"][name]
                                  for path in ("parity", "mixed", "packed",
-                                              "spec", "tiers")}}
+                                              "spec", "tiers", "overload")}}
         if name.startswith("act_quant"):
             entry["launch_floor_ms"] = out["times"]["launch_floor_ms"]
         if name == "grouped_dequant_matmul":   # its packed mode, on "packed"

@@ -41,6 +41,21 @@ request's own tier):
         --tiers 8/8 4/4 2/2 --speculate --draft-tier 2/2 --spec-k 4 \
         --device cpu
 
+Overload survival on top of ``--slo``: ``--preempt`` lets a deadlined
+request out of slack displace the slackest running slot (its cache is
+copied to the host and resumes later without a prefill; ``--spill-dir``
+writes the copies to disk instead), and ``--shed`` refuses at submit a
+deadlined request that would miss.  The request stream then becomes an
+overload trace: long best-effort requests fill the slots, and the urgent
+ones arrive after two decode chunks, the last with a budget no tier can
+serve in time.  ``--metrics`` exports the run's metrics (Prometheus text,
+or JSON for a ``.json`` path), ``--trace-out`` a Chrome trace, and
+``--profile`` fences every dispatch for per-phase device times:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --tiers 8/8 4/4 2/2 --slo --preempt --shed --requests 12 \
+        --metrics --device cpu
+
 The backend defaults to ``cuda`` (the hand-written kernels) and the device
 to ``cuda``; ``--device cpu`` runs the kernels' plain versions.  Weights
 are random from ``--seed``, made and prepared layer by layer on the device.
@@ -65,6 +80,7 @@ from repro_torch.serve.request import Request
 from repro_torch.serve.scheduler import SLOPolicy
 from repro_torch.spec.sampling import SamplingParams
 from repro_torch.spec.speculate import SpecConfig
+from repro_torch.telemetry import Telemetry, serve_report, write_json
 
 
 def main(argv=None):
@@ -100,6 +116,18 @@ def main(argv=None):
                     help="SLO-aware admission (SLOPolicy): every 3rd request "
                          "gets a tight deadline; reports queue waits and "
                          "deadline misses")
+    ap.add_argument("--preempt", action="store_true",
+                    help="with --slo: a deadlined waiting request out of "
+                         "slack displaces the slackest running slot (host "
+                         "snapshot, prefill-free resume)")
+    ap.add_argument("--shed", action="store_true",
+                    help="with --slo: refuse at submit a deadlined request "
+                         "whose projected completion misses (with "
+                         "--auto-tier a faster tier that fits is taken "
+                         "first)")
+    ap.add_argument("--spill-dir", default=None, metavar="DIR",
+                    help="write preempted slots' snapshots to step dirs "
+                         "under DIR instead of keeping them in host memory")
     ap.add_argument("--auto-tier", action="store_true",
                     help="with --slo on a tiered engine: a deadlined request "
                          "is retagged at admission to the best tier whose "
@@ -124,6 +152,17 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=0, metavar="K",
                     help="with --temperature > 0: sample among the K most "
                          "likely tokens (0 = the whole vocabulary)")
+    ap.add_argument("--metrics", nargs="?", const="-", default=None,
+                    metavar="PATH",
+                    help="export the run's metrics: Prometheus text to "
+                         "stdout (bare --metrics) or to PATH; a .json "
+                         "suffix writes the JSON snapshot instead")
+    ap.add_argument("--trace-out", default=None, metavar="TRACE.json",
+                    help="write the span trace as Chrome trace-event JSON")
+    ap.add_argument("--profile", action="store_true",
+                    help="fence every prefill, decode chunk and "
+                         "speculative round on the device and report "
+                         "per-phase seconds (same tokens, more syncs)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
@@ -158,6 +197,12 @@ def main(argv=None):
                      "--serialize-tiers)")
     if args.slo and args.baseline:
         ap.error("--slo has no effect on the batch-at-a-time baseline")
+    if (args.preempt or args.shed) and not args.slo:
+        ap.error("--preempt/--shed are SLOPolicy overload hooks; they need "
+                 "--slo")
+    if args.spill_dir and not args.preempt:
+        ap.error("--spill-dir only stores preempted-slot snapshots; it "
+                 "needs --preempt")
     if args.auto_tier and not args.slo:
         ap.error("--auto-tier needs --slo (it is SLOPolicy's admission "
                  "hook)")
@@ -222,21 +267,30 @@ def main(argv=None):
     print(f"initialised {cfg.name} ({kind}) on {device} in "
           f"{time.time() - t0:.1f}s")
     rt = Runtime(policy=policy, schedule=schedule)
+    # The command line always serves with telemetry: the report at the end,
+    # --metrics and --trace-out read it.
+    tele = Telemetry(profile=args.profile)
     if args.baseline:
         engine = engine_mod.BatchServeEngine(
             model, params, rt, max_batch=args.max_batch,
-            max_len=args.max_len, kv_bits=args.kv_bits, device=device)
+            max_len=args.max_len, kv_bits=args.kv_bits, telemetry=tele,
+            device=device)
     else:
         scheduler_policy = SLOPolicy(
             schedule, auto_tier=args.auto_tier,
-            mac_counts=cfg.quant_layer_macs() if schedule else None) \
+            mac_counts=cfg.quant_layer_macs() if schedule else None,
+            preempt=args.preempt,
+            # A queued request may wait about two chunks before the
+            # displacement check sees it again.
+            preempt_slack=2.0 * args.decode_chunk, shed=args.shed) \
             if args.slo else None
         engine = engine_mod.ServeEngine(
             model, params, rt, max_batch=args.max_batch,
             max_len=args.max_len, kv_bits=args.kv_bits,
             decode_chunk=args.decode_chunk,
             mixed_tiers=not args.serialize_tiers,
-            scheduler_policy=scheduler_policy, device=device)
+            scheduler_policy=scheduler_policy, spill_dir=args.spill_dir,
+            telemetry=tele, device=device)
 
     rng = np.random.default_rng(args.seed)
     tier_of = (lambda i: args.tiers[i % len(args.tiers)]) if args.tiers \
@@ -248,23 +302,48 @@ def main(argv=None):
     spec = SpecConfig(draft_tier=args.draft_tier, k=args.spec_k) \
         if args.speculate else None
     # --slo: every 3rd request is urgent (a tight budget in scheduler-clock
-    # ticks), the rest patient.
-    deadline_of = (lambda i: 4.0 * args.max_new if i % 3 == 2
-                   else 50.0 * args.max_new) if args.slo \
-        else (lambda i: None)
+    # ticks), the rest patient.  With --preempt/--shed the stream is an
+    # overload trace: the patient requests become long best-effort ones
+    # (the victims: no slot frees within an urgent deadline on its own),
+    # the urgent ones get deadlines of a few chunks and arrive once the
+    # long ones hold every slot, and the last urgent one has a budget no
+    # tier can serve in time (the shed case).
+    overload = args.preempt or args.shed
+    urgent_deadline = (2.5 * args.decode_chunk if overload
+                       else 4.0 * args.max_new)
+    urgent_ids = [i for i in range(args.requests) if i % 3 == 2]
+    deadline_of = (lambda i: urgent_deadline if i % 3 == 2
+                   else None if overload else 50.0 * args.max_new) \
+        if args.slo else (lambda i: None)
+
+    def budget_of(i: int) -> int:
+        if not overload:
+            return 1 + (args.max_new * (i % 4)) // 3
+        if i % 3 == 2:
+            return (3 * args.max_new if i == urgent_ids[-1]
+                    else min(4, args.max_new))
+        return 3 * args.max_new
+
     reqs = [Request(uid=i,
                     prompt=rng.integers(0, cfg.vocab_size,
                                         size=4 + i % 5).astype(np.int32),
-                    max_new_tokens=1 + (args.max_new * (i % 4)) // 3,
+                    max_new_tokens=budget_of(i),
                     tier=tier_of(i), deadline=deadline_of(i),
                     sampling=sampling, spec=spec)
             for i in range(args.requests)]
     t0 = time.time()
-    handles = [engine.submit(r) for r in reqs]
+    urgent_tail = [r for r in reqs if r.deadline is not None
+                   and r.deadline <= urgent_deadline] if overload else []
+    held = {r.uid for r in urgent_tail}
+    handles = [engine.submit(r) for r in reqs if r.uid not in held]
     events = 0
     migrated = None
-    while engine.has_work:
+    while engine.has_work or urgent_tail:
         events += len(engine.step())
+        if urgent_tail and (engine.clock >= 2.0 * args.decode_chunk
+                            or not engine.has_work):
+            handles += [engine.submit(r) for r in urgent_tail]
+            urgent_tail = []
         if args.migrate_demo and migrated is None:
             target = args.tiers[-1]
             for h in handles:
@@ -314,6 +393,32 @@ def main(argv=None):
             "spec_accepted": st.spec_accepted,
             "spec_emitted": st.spec_emitted,
             "acceptance_rate": rate}, sort_keys=True))
+    print(serve_report(tele.registry, tiers=args.tiers,
+                       mixed=not args.serialize_tiers, slo=args.slo,
+                       speculate=args.speculate, overload=overload))
+    if overload:
+        shed_uids = [h.uid for h in handles
+                     if h.status is RequestStatus.SHED]
+        print(f"shed_uids={shed_uids}")
+    if args.profile:
+        assert tele.profiler is not None
+        print("profile: " + json.dumps(tele.profiler.snapshot()["phases"],
+                                       sort_keys=True))
+    if args.metrics is not None:
+        if args.metrics == "-":
+            print(tele.prometheus(), end="")
+        elif args.metrics.endswith(".json"):
+            prof = tele.profiler.snapshot() if tele.profiler else None
+            write_json(args.metrics, tele.registry, prof)
+            print(f"metrics: wrote {args.metrics}")
+        else:
+            with open(args.metrics, "w") as fh:
+                fh.write(tele.prometheus())
+            print(f"metrics: wrote {args.metrics}")
+    if args.trace_out:
+        tele.write_trace(args.trace_out)
+        print(f"trace: wrote {args.trace_out} "
+              f"({len(tele.tracer.chrome_events())} events)")
     return results
 
 

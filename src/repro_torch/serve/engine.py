@@ -3,7 +3,8 @@
 ``Engine`` protocol, ``ServeEngine`` with per-slot bucketed prefill, the
 decode-chunk loop, the group-layout memo, per-request KV precision, tier
 migration, the tier-serialized mode, seeded sampling and self-speculative
-rounds, and the batch-at-a-time ``BatchServeEngine``).
+rounds, overload control and telemetry hooks, and the batch-at-a-time
+``BatchServeEngine``).
 
 * **Weight preload** — at construction the float params are converted ONCE
   into ``QuantizedWeight`` planes (``prepare_params``); with a
@@ -45,9 +46,21 @@ rounds, and the batch-at-a-time ``BatchServeEngine``).
   normal layout and emits the accepted prefix plus a correction token
   (``spec.speculate``).  Plain slots decode k ordinary steps in the same
   batches.
+* **Overload survival** — ``preempt(uid)`` copies a RUNNING slot's cache
+  (every tensor of its ``KVCache``: lanes, scale rows, length, tier code)
+  to the host with its decode state as a :class:`SuspendedState`
+  (optionally spilled to ``spill_dir`` through ``repro_torch.checkpoint``);
+  the request waits at its original submission tick and resumes
+  prefill-free, in any slot, token-identical.  ``SLOPolicy``'s
+  ``preempt``, ``shed``, ``tenant_weights`` and ``time_slice`` drive it
+  between rounds; ``cancel`` drops QUEUED and SUSPENDED requests.
+* **Telemetry** — ``telemetry=`` (``repro_torch.telemetry.Telemetry``,
+  duck-typed) receives every lifecycle and dispatch hook; every hook site
+  is guarded by ``telemetry is not None``, and the engine itself never
+  synchronizes with the device (only a profiling telemetry fences).
 
-Engines asked for preemption or a mesh raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+An engine asked for a mesh raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
 
 The scheduler clock is the number of decode steps executed
 (``ServeEngine.clock``).
@@ -63,20 +76,23 @@ import numpy as np
 import numpy.typing as npt
 import torch
 
+from repro_torch.checkpoint import checkpoint as checkpoint_lib
 from repro_torch.core.policy import INTEGER_BACKENDS, PrecisionPolicy
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.models.layers import Runtime
 from repro_torch.models.transformer import LM
 from repro_torch.serve import slots as slots_lib
 from repro_torch.serve.handle import RequestHandle, RequestStatus, TokenEvent
 from repro_torch.serve.request import Request
-from repro_torch.serve.scheduler import Scheduler, SchedulerPolicy, SLOPolicy
+from repro_torch.serve.scheduler import (RunningEntry, Scheduler,
+                                         SchedulerPolicy, SLOPolicy)
 from repro_torch.spec import sampling as sampling_lib
 from repro_torch.spec import speculate as spec_lib
 
 __all__ = ["Request", "Engine", "ServeEngine", "BatchServeEngine",
-           "EngineStats", "prepare_params", "prepare_tree", "PREPARE_CALLS"]
+           "EngineStats", "SuspendedState", "prepare_params", "prepare_tree",
+           "PREPARE_CALLS"]
 
 # Mixed-tier group layout: the tuple of (tier name, rows) runs describing a
 # tier-sorted decode batch (see Runtime.for_groups).
@@ -86,7 +102,6 @@ GroupLayout = Tuple[Tuple[str, int], ...]
 # quantize + decompose sweep over the params) bumps it.
 PREPARE_CALLS = 0
 
-TODO_PREEMPT = "preemption is ROADMAP Queue 1 item 6, not ported yet"
 TODO_MESH = "tensor-parallel serving is ROADMAP Queue 1 item 10, not ported yet"
 
 
@@ -225,7 +240,15 @@ class EngineStats:
     counts ``set_tier`` on RUNNING requests and ``kv_migrations`` those
     that requantized a live KV lane (the two tiers' KV codes differ);
     ``tier_autoselects`` the admission-time retags of
-    ``SLOPolicy(auto_tier=True)``; ``sheds`` the cancelled requests."""
+    ``SLOPolicy(auto_tier=True)`` (and its downtiers at submit).
+
+    Overload: ``preemptions`` counts RUNNING slots suspended, ``resumes``
+    their prefill-free re-admissions, ``sheds`` the requests refused at
+    submit or cancelled, ``spill_bytes`` the snapshot bytes written to
+    ``spill_dir`` and ``time_slice_preemptions`` the best-effort slots
+    preempted by ``SLOPolicy(time_slice=N)``.  ``decode_dispatches`` holds,
+    per group layout, the kernel launches of one decode step
+    (``count_dispatches=True`` or a profiling telemetry)."""
 
     prefills: int = 0
     prefill_tokens: int = 0
@@ -238,7 +261,11 @@ class EngineStats:
     tier_migrations: int = 0
     kv_migrations: int = 0
     tier_autoselects: int = 0
+    preemptions: int = 0
+    resumes: int = 0
     sheds: int = 0
+    spill_bytes: int = 0
+    time_slice_preemptions: int = 0
     spec_rounds: int = 0
     spec_draft_steps: int = 0
     spec_verify_steps: int = 0
@@ -252,6 +279,48 @@ class EngineStats:
     decode_steps_by_tier: Dict[str, int] = dataclasses.field(
         default_factory=dict)
     tokens_by_tier: Dict[str, int] = dataclasses.field(default_factory=dict)
+    decode_dispatches: Dict[GroupLayout, int] = dataclasses.field(
+        default_factory=dict)
+
+
+@dataclasses.dataclass
+class SuspendedState:
+    """Host-side snapshot of one preempted request (``ServeEngine.preempt``):
+    the request, the tokens already emitted, the decode budget still owed,
+    the last emitted token (the next decode step's input), the sampling
+    draw counter, and the slot's cache (``slots.slot_snapshot``: every
+    tensor of every layer's batch-1 ``KVCache``, copied to the host).  The
+    snapshot fits any slot.  ``cache`` is None once it was spilled to disk
+    (``spill_step`` names the checkpoint step under ``spill_dir``);
+    ``nbytes`` is its size either way."""
+
+    request: Request
+    tokens: List[int]
+    remaining: int
+    last_token: int
+    cache: Optional[Any]
+    spill_step: Optional[int] = None
+    nbytes: int = 0
+    draws: int = 0
+
+
+class _DeferredErrors:
+    """A raising ``on_token`` callback must not abort a scheduling round
+    midway (host bookkeeping would fall out of step with the device
+    state): the engines route callback errors here
+    (``RequestHandle._push(defer=...)``) and re-raise the first one at the
+    end of the round."""
+
+    _deferred_error: Optional[BaseException] = None
+
+    def _defer_error(self, err: BaseException) -> None:
+        if self._deferred_error is None:
+            self._deferred_error = err
+
+    def _raise_deferred(self) -> None:
+        if self._deferred_error is not None:
+            err, self._deferred_error = self._deferred_error, None
+            raise err
 
 
 @runtime_checkable
@@ -261,9 +330,10 @@ class Engine(Protocol):
     one scheduling round and returns the tokens it emitted; ``drain`` steps
     until idle and returns every finished request's tokens; ``run`` submits
     a list, drains and collects.  ``retire`` drops a terminal request's
-    host state and returns its tokens; ``cancel`` drops a QUEUED request
-    (handle SHED).  ``clock`` is the scheduler clock (decode steps
-    executed) that submission times and deadlines are priced in."""
+    host state and returns its tokens.  ``clock`` is the scheduler clock
+    (decode steps executed) that submission times and deadlines are priced
+    in.  ``cancel`` drops a request that is not running (QUEUED, or
+    SUSPENDED on engines that preempt): its handle turns SHED."""
 
     def submit(self, request: Request) -> RequestHandle: ...
 
@@ -303,24 +373,21 @@ def _retire(engine: Any, finished: Dict[int, List[int]], uid: int
     return tokens
 
 
-def _cancellable(engine: Any, uid: int) -> RequestHandle:
-    """The handle of a request ``cancel`` may drop (QUEUED), else raise."""
+def _cancellable(engine: Any, uid: int, if_running: str) -> RequestHandle:
+    """The handle of a request ``cancel`` may drop (not yet terminal, not
+    RUNNING), else raise; ``if_running`` says why a running one cannot
+    be."""
     handle = engine.handles.get(uid)
     if handle is None:
         raise KeyError(f"unknown uid {uid}")
     if handle.done:
         raise RuntimeError(f"request {uid} already {handle.status.value}")
-    if handle.status is RequestStatus.SUSPENDED:
-        raise NotImplementedError(TODO_PREEMPT)
-    if handle.status is not RequestStatus.QUEUED:
-        raise RuntimeError(
-            f"request {uid} is {handle.status.value}; only QUEUED requests "
-            "can be cancelled (a running one would need preemption, ROADMAP "
-            "Queue 1 item 6)")
+    if handle.status is RequestStatus.RUNNING:
+        raise RuntimeError(f"request {uid} is running; {if_running}")
     return handle
 
 
-class ServeEngine:
+class ServeEngine(_DeferredErrors):
     """Continuous batching over ``max_batch`` persistent slots.
 
     Requests enter through ``submit`` any time (``run`` for the blocking
@@ -334,21 +401,29 @@ class ServeEngine:
     per-slot KV arena (``kv_bits`` must then stay None).
     ``scheduler_policy`` picks which waiting request takes a freed slot.
     ``packed`` prepares unprepared params as the byte-packed store.
-    Everything runs on ``device`` (default cuda); the params must live
-    there."""
+    ``spill_dir`` writes preempted slots' snapshots to disk instead of
+    keeping them in host memory; ``telemetry`` takes the lifecycle and
+    dispatch hooks; ``count_dispatches`` records each decode layout's
+    kernel launches (``decode_dispatch_count``) in ``stats``.  Everything
+    runs on ``device`` (default cuda); the params must live there."""
 
     def __init__(self, model: LM, params: Any, rt: Runtime, *,
                  max_batch: int = 8, max_len: int = 512,
                  kv_bits: Optional[int] = None, decode_chunk: int = 8,
                  prompt_bucket: int = 8, packed: bool = False,
                  mixed_tiers: bool = True, fused_decode: bool = True,
+                 count_dispatches: bool = False,
                  scheduler_policy: Optional[SchedulerPolicy] = None,
-                 mesh: Optional[Any] = None, device: Any = None) -> None:
+                 mesh: Optional[Any] = None,
+                 spill_dir: Optional[str] = None,
+                 telemetry: Optional[Any] = None,
+                 device: Any = None) -> None:
         if mesh is not None:
             raise NotImplementedError(TODO_MESH)
         self.device = resolve_device(device)
         self.model = model
         self.rt = dataclasses.replace(rt, fused=fused_decode)
+        self.count_dispatches = count_dispatches
         self.max_batch = max_batch
         self.max_len = max_len
         self.kv_bits = kv_bits
@@ -374,10 +449,27 @@ class ServeEngine:
                                          kv_bits=arena_kv, device=self.device)
         self.scheduler = Scheduler(max_batch, policy=scheduler_policy)
         self.stats = EngineStats()
+        # Every hook below is guarded by ``telemetry is not None``: without
+        # it the engine takes no hook and makes no device sync.
+        self.telemetry = telemetry
+        if telemetry is not None:
+            telemetry.attach_engine(
+                num_slots=max_batch, schedule=self.schedule,
+                mac_counts=model.cfg.quant_layer_macs()
+                if self.schedule is not None else None)
         self._layout_cache: Dict[Tuple[Optional[str], ...],
                                  Tuple[GroupLayout, npt.NDArray[np.int64]]] = {}
         self.handles: Dict[int, RequestHandle] = {}
         self._seen_uids: Set[int] = set()
+        # Preemption: uid -> snapshot of the suspended slot, spilled through
+        # the checkpoint module when ``spill_dir`` is set.
+        self._suspended: Dict[int, SuspendedState] = {}
+        self._spill_dir = spill_dir
+        self._spiller: Optional[checkpoint_lib.AsyncCheckpointer] = None
+        self._spill_counter = 0
+        self._in_round = False               # preempt() is illegal mid-round
+        # Time slices: the tick each slot's current occupancy began.
+        self._slice_start: Dict[int, float] = {}
         # Host-mirrored per-slot decode state.
         self._tok: npt.NDArray[np.int32] = np.zeros((max_batch,), np.int32)
         self._remaining: npt.NDArray[np.int32] = np.zeros((max_batch,),
@@ -392,6 +484,29 @@ class ServeEngine:
                                                        np.float32)
         self._topk: npt.NDArray[np.int32] = np.zeros((max_batch,), np.int32)
 
+    # ----------------------------------------------------- dispatch counting
+    @torch.inference_mode()
+    def decode_dispatch_count(self, *, groups: Optional[GroupLayout] = None,
+                              tier: Optional[str] = None) -> int:
+        """Kernel launches of ONE decode step at a group layout (``groups``)
+        or one tier: the ``_build.LAUNCHES`` delta of a step run with every
+        slot inactive, which writes no cache and emits nothing.  0 on the
+        plain backend and on the CPU (no kernel launches there)."""
+        if groups is not None:
+            rt = self.rt.for_groups(groups, torch.arange(
+                self.max_batch, dtype=torch.int64, device=self.device))
+        elif tier is not None:
+            rt = self.rt.for_tier(tier)
+        else:
+            rt = self.rt
+        before = sum(_build.LAUNCHES.values())
+        self.model.decode_step(
+            self.params, rt, self.arena.caches,
+            tokens=torch.from_numpy(self._tok[:, None]).to(self.device),
+            active=torch.zeros((self.max_batch,), dtype=torch.bool,
+                               device=self.device))
+        return sum(_build.LAUNCHES.values()) - before
+
     # ------------------------------------------------------------------ clock
     @property
     def clock(self) -> float:
@@ -403,10 +518,20 @@ class ServeEngine:
         """True while anything waits or decodes."""
         return self.scheduler.has_work
 
+    def _sync_telemetry(self) -> None:
+        """Mirror EngineStats into the telemetry registry (after every
+        state-changing operation, so the twins always agree)."""
+        if self.telemetry is not None:
+            self.telemetry.sync_stats(
+                self.stats, queue_depth=len(self.scheduler.waiting))
+
     # ----------------------------------------------------------------- intake
     def submit(self, request: Request) -> RequestHandle:
         """Queue one request; returns its streaming :class:`RequestHandle`.
-        On a tiered engine the queued copy carries a concrete tier name."""
+        On a tiered engine the queued copy carries a concrete tier name.
+        Under ``SLOPolicy(shed=True)`` the policy's admission decision runs
+        here: a deadlined request that would miss comes back SHED, or (with
+        ``auto_tier``) downtiered to the best tier that fits."""
         _validate_request(request, self.max_len, self._seen_uids)
         if self.schedule is None:
             if request.tier is not None:
@@ -446,7 +571,26 @@ class ServeEngine:
         # QUEUED set_tier re-tags the queue entry in place.
         handle = RequestHandle(request, self, submitted_at=self.clock)
         self.handles[request.uid] = handle
+        pol = self.scheduler.policy
+        if isinstance(pol, SLOPolicy) and pol.shed:
+            decision = pol.admission_decision(
+                request, list(self.scheduler.waiting), self._running_info(),
+                self.max_batch, self.scheduler.submitted_at, self.clock)
+            if decision == "shed":
+                handle._mark_shed(self.clock)
+                self.stats.sheds += 1
+                if self.telemetry is not None:
+                    self.telemetry.on_submit(handle, ticks=self.clock)
+                    self.telemetry.on_shed(handle, ticks=self.clock)
+                self._sync_telemetry()
+                return handle
+            if decision != "admit":
+                request.tier = decision          # the normalized copy
+                self.stats.tier_autoselects += 1
         self.scheduler.submit(request, now=self.clock)
+        if self.telemetry is not None:
+            self.telemetry.on_submit(handle, ticks=self.clock)
+        self._sync_telemetry()
         return handle
 
     # -------------------------------------------------------------- migration
@@ -456,8 +600,9 @@ class ServeEngine:
         QUEUED: re-tag the waiting request (it prefills at the new tier).
         RUNNING (mixed-tier mode only): requantize the slot's KV lanes in
         place if the two tiers' KV codes differ, then re-tag the slot; the
-        weight plane prefix switches at the next group layout.  A finished
-        request raises."""
+        weight plane prefix switches at the next group layout.  A SUSPENDED
+        request (its snapshot holds its tier's KV codes) and a finished one
+        raise."""
         if self.schedule is None:
             raise ValueError("set_tier needs an engine with a "
                              "PrecisionSchedule")
@@ -472,7 +617,9 @@ class ServeEngine:
         if tier == old:
             return
         if handle.status is RequestStatus.SUSPENDED:
-            raise NotImplementedError(TODO_PREEMPT)
+            raise RuntimeError(
+                f"request {handle.uid} is suspended; its KV snapshot is "
+                "pinned at its tier — let it resume (or cancel it) first")
         if handle.status is RequestStatus.QUEUED:
             handle.request.tier = tier      # shared with the queue entry
             return
@@ -482,33 +629,225 @@ class ServeEngine:
                 "serialized decode batch runs one tier at a time)")
         slot = handle.slot
         assert slot is not None
+        kv_migrated = False
+        tele = self.telemetry
+        t0 = tele.dispatch_start(self.device) if tele is not None else 0.0
         if self._mixed_kv:
             code = self.schedule.kv_code_for(tier)
             if code != self.schedule.kv_code_for(old):
                 with torch.inference_mode():
                     slots_lib.migrate_kv_tier(self.arena.caches, slot, code)
                 self.stats.kv_migrations += 1
+                kv_migrated = True
         handle.request.tier = tier          # shared with the SlotState
         self.arena.tiers[slot] = tier
         self.stats.tier_migrations += 1
+        if tele is not None:
+            tele.on_migrate(
+                uid=handle.uid, old_tier=old, new_tier=tier, kv=kv_migrated,
+                ticks=self.clock, t0=t0 if kv_migrated else None,
+                fence=self.device if kv_migrated else None)
+        self._sync_telemetry()
 
-    def preempt(self, uid: int) -> None:
-        raise NotImplementedError(TODO_PREEMPT)
+    # ------------------------------------------------------------- preemption
+    @property
+    def suspended(self) -> Dict[int, SuspendedState]:
+        """The live suspensions (uid -> snapshot), as a copy."""
+        return dict(self._suspended)
+
+    def _running_info(self) -> List[RunningEntry]:
+        """The RUNNING slots as the overload hooks price them: (slot,
+        request, decode tokens still owed, submission tick)."""
+        return [(slot, s.request, int(s.remaining),
+                 self.handles[s.uid].submitted_at)
+                for slot, s in self.scheduler.occupied()]
+
+    def preempt(self, uid: int) -> SuspendedState:
+        """Suspend a RUNNING request, freeing its slot.
+
+        The slot's cache is copied to the host (``slots.slot_snapshot``: a
+        copy, not a view, finished before this returns) with the host
+        decode state (tokens, budget owed, last token, draw counter) as a
+        :class:`SuspendedState`; with ``spill_dir`` it goes to disk.  The
+        request waits again at its ORIGINAL submission tick (a preemption
+        never extends its deadline) and its handle turns SUSPENDED; it
+        resumes prefill-free in whichever slot frees, token-identical.
+
+        Legal only between scheduling rounds: from inside ``step()`` (an
+        ``on_token`` callback) it raises, since the device state there is
+        ahead of the host's token bookkeeping."""
+        if self._in_round:
+            raise RuntimeError(
+                "preempt() called from inside a scheduling round (e.g. an "
+                "on_token callback); preemption is only legal between "
+                "engine.step() calls")
+        handle = self.handles.get(uid)
+        if handle is None:
+            raise KeyError(f"unknown uid {uid}")
+        if handle.status is not RequestStatus.RUNNING:
+            raise RuntimeError(
+                f"request {uid} is {handle.status.value}; only RUNNING "
+                "requests can be preempted")
+        slot = handle.slot
+        assert slot is not None
+        state = self.scheduler.evict(slot)
+        cache = slots_lib.slot_snapshot(self.arena.caches, slot)
+        sus = SuspendedState(
+            request=state.request, tokens=list(state.tokens),
+            remaining=int(state.remaining), last_token=int(self._tok[slot]),
+            cache=cache, nbytes=slots_lib.snapshot_nbytes(cache),
+            draws=int(self._draws[slot]))
+        if self._spill_dir is not None:
+            sus = self._spill(sus)
+        self._suspended[uid] = sus
+        self.arena.tiers[slot] = None
+        handle._mark_suspended()
+        pol = self.scheduler.policy
+        if isinstance(pol, SLOPolicy):
+            # A half-served stream owes only its remainder.
+            pol.remaining_tokens[uid] = sus.remaining
+        self.scheduler.submit(state.request, now=handle.submitted_at)
+        self.stats.preemptions += 1
+        if self.telemetry is not None:
+            self.telemetry.on_suspend(handle, ticks=self.clock)
+        self._sync_telemetry()
+        return sus
+
+    def _policy_preempt(self) -> None:
+        """``SLOPolicy(preempt=True)`` between rounds: while more deadlined
+        requests are out of slack than slots are free, and the policy names
+        a strictly slacker RUNNING victim, suspend it (each victim waits
+        with more slack than the request it yielded to, so this ends)."""
+        pol = self.scheduler.policy
+        if not isinstance(pol, SLOPolicy) or not pol.preempt:
+            return
+        for _ in range(self.max_batch):
+            waiting = list(self.scheduler.waiting)
+            urgent = [r for r in waiting if r.deadline is not None
+                      and pol.weighted_slack(r, self.scheduler.submitted_at,
+                                             self.clock) <= pol.preempt_slack]
+            if len(self.scheduler.free_slots()) >= len(urgent):
+                return
+            victim = pol.preempt_victim(
+                waiting, self._running_info(), self.scheduler.submitted_at,
+                self.clock)
+            if victim is None:
+                return
+            self.preempt(victim)
+
+    def _time_slice_preempt(self) -> None:
+        """``SLOPolicy(time_slice=N)`` between rounds: preempt best-effort
+        (deadline-free) RUNNING slots whose slice has run N ticks while
+        requests wait, the oldest slice first and no more than wait.  A
+        victim is re-aged as submitted NOW in the scheduler only (its
+        handle keeps its submission tick), so the requests it yields to
+        win the tie-break."""
+        pol = self.scheduler.policy
+        if not isinstance(pol, SLOPolicy) or pol.time_slice is None:
+            return
+        n_waiting = len(self.scheduler.waiting)
+        if n_waiting == 0:
+            return
+        expired = [(self._slice_start.get(slot, self.clock), state.uid)
+                   for slot, state in self.scheduler.occupied()
+                   if state.request.deadline is None
+                   and self.clock - self._slice_start.get(slot, self.clock)
+                   >= pol.time_slice]
+        expired.sort()                     # the oldest slice first
+        for _, uid in expired[:n_waiting]:
+            self.preempt(uid)
+            self.scheduler.submitted_at[uid] = self.clock
+            self.stats.time_slice_preemptions += 1
+
+    @torch.inference_mode()
+    def _resume_into(self, slot: int, req: Request,
+                     sus: SuspendedState) -> None:
+        """Prefill-free re-admission: write the snapshot into the (possibly
+        different) slot and restore the host decode state where the
+        preemption cut it."""
+        cache = sus.cache if sus.cache is not None else self._unspill(sus)
+        slots_lib.slot_restore(self.arena.caches, cache, slot)
+        self.arena.tiers[slot] = req.tier
+        state = self.scheduler.slots[slot]
+        assert state is not None
+        state.tokens = list(sus.tokens)
+        state.remaining = sus.remaining
+        self._tok[slot] = sus.last_token
+        self._remaining[slot] = sus.remaining
+        self._load_sampling_state(slot, req, draws=sus.draws)
+        self._slice_start[slot] = self.clock
+        pol = self.scheduler.policy
+        if isinstance(pol, SLOPolicy):
+            pol.remaining_tokens.pop(req.uid, None)
+        self.handles[req.uid]._mark_admitted(slot, self.clock)
+        self.stats.resumes += 1
+        if self.telemetry is not None:
+            self.telemetry.on_admit(self.handles[req.uid], slot=slot,
+                                    ticks=self.clock, resumed=True)
+
+    def _spill(self, sus: SuspendedState) -> SuspendedState:
+        """Write a snapshot through the checkpoint module and drop it from
+        host memory.  ``keep=0``: live spills are never collected;
+        :meth:`_unspill` removes each step dir as its request resumes."""
+        assert self._spill_dir is not None
+        if self._spiller is None:
+            self._spiller = checkpoint_lib.AsyncCheckpointer(
+                self._spill_dir, keep=0)
+        step = self._spill_counter
+        self._spill_counter += 1
+        self._spiller.save(step, sus.cache, extra={
+            "uid": sus.request.uid, "tokens": sus.tokens,
+            "remaining": sus.remaining, "last_token": sus.last_token,
+            "tier": sus.request.tier})
+        self.stats.spill_bytes += sus.nbytes
+        return dataclasses.replace(sus, cache=None, spill_step=step)
+
+    def _unspill(self, sus: SuspendedState) -> Any:
+        """Read a spilled snapshot back (waiting for the writer) and delete
+        its step dir."""
+        assert self._spiller is not None and sus.spill_step is not None \
+            and self._spill_dir is not None
+        self._spiller.wait()
+        tree, _ = checkpoint_lib.restore(
+            self._spill_dir, sus.spill_step,
+            target=slots_lib.slot_template(self.arena.caches), device="cpu")
+        checkpoint_lib.remove(self._spill_dir, sus.spill_step)
+        return tree
+
+    def _drop_suspended(self, uid: int) -> None:
+        """Discard a suspension's snapshot (its spill dir too) and its
+        policy entry."""
+        sus = self._suspended.pop(uid, None)
+        if sus is not None and sus.spill_step is not None:
+            assert self._spiller is not None and self._spill_dir is not None
+            self._spiller.wait()
+            checkpoint_lib.remove(self._spill_dir, sus.spill_step)
+        pol = self.scheduler.policy
+        if isinstance(pol, SLOPolicy):
+            pol.remaining_tokens.pop(uid, None)
 
     def cancel(self, uid: int) -> None:
-        """Drop a QUEUED request: its queue entry and submission clock go,
-        and its handle turns SHED (no tokens)."""
-        handle = _cancellable(self, uid)
+        """Drop a QUEUED or SUSPENDED request: its queue entry, submission
+        clock, snapshot and spill dir go, and its handle turns SHED with
+        whatever it streamed.  A RUNNING request must be preempted first."""
+        handle = _cancellable(self, uid, "preempt it first (cancel takes "
+                              "only QUEUED or SUSPENDED requests)")
         self.scheduler.cancel(uid)
+        self._drop_suspended(uid)
         handle._mark_shed(self.clock)
         self.stats.sheds += 1
+        if self.telemetry is not None:
+            self.telemetry.on_shed(handle, ticks=self.clock)
+        self._sync_telemetry()
 
     def retire(self, uid: int) -> List[int]:
         """Drop a terminal (FINISHED or SHED) request's handle, results
-        entry and uid reservation, and return its tokens: a long-running
-        server's bound on per-request host memory.  The uid may be
-        submitted again."""
-        return _retire(self, self.scheduler.finished, uid)
+        entry, uid reservation and any suspension left behind, and return
+        its tokens: a long-running server's bound on per-request host
+        memory.  The uid may be submitted again."""
+        tokens = _retire(self, self.scheduler.finished, uid)
+        self._drop_suspended(uid)
+        return tokens
 
     # ------------------------------------------------------------- scheduling
     def _bucket_pad(self, prompt: npt.NDArray[np.int32]
@@ -525,7 +864,8 @@ class ServeEngine:
                     speculative: bool = False) -> TokenEvent:
         """Record one emitted token on slot state + handle.  ``speculative``
         marks tokens of a speculative round (accepted drafts and
-        corrections, all verified at ``tier``)."""
+        corrections, all verified at ``tier``).  A callback that raises is
+        re-raised at the end of the round (``_raise_deferred``)."""
         index = len(state.tokens)
         state.emit(token)
         sp = state.request.sampling
@@ -533,18 +873,23 @@ class ServeEngine:
                            tier=tier, final=state.done,
                            sampled=sp is not None and sp.temperature > 0.0,
                            speculative=speculative)
-        self.handles[state.uid]._push(event, self.clock)
+        self.handles[state.uid]._push(event, self.clock,
+                                      defer=self._defer_error)
+        if self.telemetry is not None:
+            self.telemetry.on_token(event, ticks=self.clock)
         return event
 
-    def _load_sampling_state(self, slot: int, req: Request) -> None:
-        """Load one slot's sampling state from its request at admission:
-        the raw request key, draw counter 0, temperature and top-k.  Greedy
-        requests keep the all-zero state and never consume randomness."""
+    def _load_sampling_state(self, slot: int, req: Request, *,
+                             draws: int) -> None:
+        """Load one slot's sampling state from its request: the raw request
+        key, the draw counter (0 at admission, the snapshot's at resume),
+        temperature and top-k.  Greedy requests keep the all-zero state and
+        never consume randomness."""
         sp = req.sampling
         self._key[slot] = sampling_lib.request_key(sp.seed if sp else 0)
         self._temp[slot] = np.float32(sp.temperature if sp else 0.0)
         self._topk[slot] = sp.top_k if sp else 0
-        self._draws[slot] = 0
+        self._draws[slot] = draws
 
     def _sampling_args(self, slots: Any = slice(None)
                        ) -> Tuple[torch.Tensor, ...]:
@@ -595,7 +940,9 @@ class ServeEngine:
         policy's pick into any slot; serialized mode: only requests of the
         batch's tier, the next tier chosen by the policy's pick when the
         batch is empty) and prefill each admitted request; returns the
-        prefill-emitted first tokens as events."""
+        prefill-emitted first tokens as events.  A SUSPENDED request that
+        wins a slot resumes instead (:meth:`_resume_into`: no prefill, no
+        event)."""
         events: List[TokenEvent] = []
         for slot in self.scheduler.free_slots():
             if self.schedule is None or self.mixed_tiers:
@@ -613,21 +960,34 @@ class ServeEngine:
                                            now=self.clock)
             if req is None:
                 break
+            sus = self._suspended.pop(req.uid, None)
+            if sus is not None:
+                self._resume_into(slot, req, sus)
+                continue
             self._auto_select_tier(req)
             padded, plen = self._bucket_pad(np.asarray(req.prompt))
-            self._load_sampling_state(slot, req)
+            self._load_sampling_state(slot, req, draws=0)
+            tele = self.telemetry
+            t1 = tele.dispatch_start(self.device) if tele is not None else 0.0
             t0 = time.perf_counter()
             first = self._prefill_slot(slot, padded, plen, req.tier)
             self.stats.prefill_seconds += time.perf_counter() - t0
             self.arena.tiers[slot] = req.tier
             self.stats.prefills += 1
             self.stats.prefill_tokens += plen
+            if tele is not None:
+                tele.on_prefill(uid=req.uid, tier=req.tier, prompt_len=plen,
+                                t0=t1, ticks=self.clock, fence=self.device)
             # The first token was draw event 0 (sampled rows only).
             if self._temp[slot] > 0.0:
                 self._draws[slot] = 1
+            self._slice_start[slot] = self.clock
             state = self.scheduler.slots[slot]
             assert state is not None
             self.handles[req.uid]._mark_admitted(slot, self.clock)
+            if tele is not None:
+                tele.on_admit(self.handles[req.uid], slot=slot,
+                              ticks=self.clock)
             events.append(self._emit_token(state, first, req.tier))
             self._tok[slot] = first
             self._remaining[slot] = state.remaining
@@ -736,16 +1096,33 @@ class ServeEngine:
         """One scheduling round: admit into free slots, run one decode chunk
         (or one speculative round, when an occupied slot's request sets
         ``spec``) over the occupied slots, and account its tokens.  Returns
-        every token emitted this round in emission order."""
+        every token emitted this round in emission order.
+
+        The time-slice and ``SLOPolicy(preempt=True)`` displacement rules
+        run first, between rounds (the only point where a snapshot is
+        coherent), so the slots they free are filled by this round's
+        admission; ``preempt`` is then refused until the round ends."""
         if self.schedule is not None and not self.mixed_tiers \
                 and not self.scheduler.occupied():
             if self._active_tier is not None:     # the batch drained
                 self._last_tier = self._active_tier
             self._active_tier = None
+        self._time_slice_preempt()
+        self._policy_preempt()
+        self._in_round = True
+        try:
+            return self._step_round()
+        finally:
+            self._in_round = False
+            self._sync_telemetry()
+
+    def _step_round(self) -> List[TokenEvent]:
+        """The round body of :meth:`step`: admit, decode, account."""
         events = self._admit_free_slots()
         self._release_done()                       # max_new_tokens == 1 cases
         occupied = self.scheduler.occupied()
         if not occupied:
+            self._raise_deferred()
             return events
         if any(s.request.spec is not None for _, s in occupied):
             return self._spec_dispatch(occupied, events)
@@ -753,6 +1130,17 @@ class ServeEngine:
         n_steps = int(min(self.decode_chunk,
                           max(s.remaining for _, s in occupied)))
         rt = self._runtime()
+        tele = self.telemetry
+        groups: Optional[GroupLayout] = rt.groups if (
+            self.schedule is not None and self.mixed_tiers) else None
+        if groups is not None:
+            want_counts = self.count_dispatches or (
+                tele is not None and tele.profiler is not None)
+            if want_counts and groups not in self.stats.decode_dispatches:
+                self.stats.decode_dispatches[groups] = \
+                    self.decode_dispatch_count(groups=groups)
+        t1 = tele.dispatch_start(self.device) if tele is not None else 0.0
+        ticks0 = self.clock
         t0 = time.perf_counter()
         (self._tok, self._remaining, self._draws, toks,
          actives) = self._decode_chunk(rt, n_steps)
@@ -774,6 +1162,15 @@ class ServeEngine:
                 t = self.arena.tiers[slot]
                 assert t is not None
                 tk[t] = tk.get(t, 0) + int(actives[:, slot].sum())
+        if tele is not None:
+            # Free lanes carry tier None (priced at the schedule default).
+            lanes = [(self.arena.tiers[s], int(actives[:, s].sum()))
+                     for s in range(self.max_batch)]
+            tele.on_decode_chunk(
+                t0=t1, ticks0=ticks0, ticks_end=self.clock, n_steps=n_steps,
+                lanes=lanes, groups=groups, fence=self.device,
+                dispatches=self.stats.decode_dispatches.get(groups)
+                if groups is not None else None)
         etier = {s_: self.arena.tiers[s_] for s_, _ in occupied}
         for s in range(n_steps):
             for slot, state in occupied:
@@ -781,6 +1178,7 @@ class ServeEngine:
                     events.append(self._emit_token(state, int(toks[s, slot]),
                                                    etier[slot]))
         self._release_done()
+        self._raise_deferred()
         return events
 
     @torch.inference_mode()
@@ -887,6 +1285,9 @@ class ServeEngine:
         rt_draft = self._runtime(draft_tiers)
         rt_verify = self._runtime()
         sampled = bool((self._temp > 0.0).any())
+        tele = self.telemetry
+        t1 = tele.dispatch_start(self.device) if tele is not None else 0.0
+        ticks0 = self.clock
         t0 = time.perf_counter()
         (self._tok, self._remaining, self._draws, dtoks, dact, win, e,
          m) = self._spec_round(k, rt_draft, rt_verify,
@@ -926,6 +1327,18 @@ class ServeEngine:
                                             else 0)
             if n:
                 tk[t] = tk.get(t, 0) + n
+        if tele is not None:
+            # Spec slots are busy all k draft steps and the verify step;
+            # plain slots decode through the draft phase only.
+            draft_lanes = [
+                (draft_tiers[s], k if spec_np[s] else int(dact[:, s].sum()))
+                for s in range(self.max_batch)]
+            verify_lanes = [(self.arena.tiers[s], 1 if spec_np[s] else 0)
+                            for s in range(self.max_batch)]
+            tele.on_spec_round(
+                t0=t1, ticks0=ticks0, ticks_end=self.clock, k=k,
+                draft_lanes=draft_lanes, verify_lanes=verify_lanes,
+                fence=self.device, args={"n_spec": n_spec})
         etier = {slot: self.arena.tiers[slot] for slot, _ in occupied}
         for s_i in range(k):
             for slot, state in occupied:
@@ -937,6 +1350,7 @@ class ServeEngine:
                 events.append(self._emit_token(
                     state, int(win[slot, j]), etier[slot], speculative=True))
         self._release_done()
+        self._raise_deferred()
         return events
 
     def drain(self) -> Dict[int, List[int]]:
@@ -946,11 +1360,13 @@ class ServeEngine:
         return dict(self.scheduler.finished)
 
     def run(self, requests: Sequence[Request]) -> Dict[int, List[int]]:
-        """Blocking wrapper: submit every request, drain, collect."""
+        """Blocking wrapper: submit every request, drain, collect.  A
+        request shed at submit maps to its (empty) stream."""
         for r in requests:
             self.submit(r)
         finished = self.drain()
-        return {r.uid: finished[r.uid] for r in requests}
+        return {r.uid: finished.get(r.uid, list(self.handles[r.uid].tokens))
+                for r in requests}
 
     @property
     def results(self) -> Dict[int, List[int]]:
@@ -969,7 +1385,7 @@ class _BatchState:
     max_new: int
 
 
-class BatchServeEngine:
+class BatchServeEngine(_DeferredErrors):
     """The batch-at-a-time baseline: admit up to ``max_batch`` requests,
     prefill them together (right-padded, per-row true lengths), decode
     EVERY row up to the batch's largest ``max_new_tokens``, then form the
@@ -983,12 +1399,15 @@ class BatchServeEngine:
     schedule's default otherwise; ``set_tier`` always raises), and the KV
     cache follows that tier's ``kv_tiers`` precision unless ``kv_bits`` is
     given: the fixed-precision reference for the mixed per-slot arena.
-    Greedy only; runs on ``device`` (default cuda)."""
+    Greedy only; runs on ``device`` (default cuda).  ``telemetry`` takes
+    the lifecycle hooks and one span per prefill and decode step."""
 
     def __init__(self, model: LM, params: Any, rt: Runtime, *,
                  max_batch: int = 8, max_len: int = 512,
                  kv_bits: Optional[int] = None, packed: bool = False,
-                 tier: Optional[str] = None, device: Any = None) -> None:
+                 tier: Optional[str] = None,
+                 telemetry: Optional[Any] = None,
+                 device: Any = None) -> None:
         if rt.schedule is not None and tier is not None \
                 and tier not in rt.schedule.tiers:
             raise ValueError(f"unknown tier {tier!r}; engine serves "
@@ -1008,6 +1427,10 @@ class BatchServeEngine:
         self.max_len = max_len
         self.kv_bits = kv_bits
         self.stats = EngineStats()
+        self.telemetry = telemetry
+        if telemetry is not None:
+            telemetry.attach_engine(num_slots=max_batch,
+                                    schedule=rt.schedule)
         self.handles: Dict[int, RequestHandle] = {}
         self.results: Dict[int, List[int]] = {}
         self._queue: List[Request] = []
@@ -1043,6 +1466,10 @@ class BatchServeEngine:
         handle = RequestHandle(request, self, submitted_at=self.clock)
         self.handles[request.uid] = handle
         self._queue.append(request)
+        if self.telemetry is not None:
+            self.telemetry.on_submit(handle, ticks=self.clock)
+            self.telemetry.sync_stats(self.stats,
+                                      queue_depth=len(self._queue))
         return handle
 
     def _set_tier(self, handle: RequestHandle, tier: str) -> None:
@@ -1052,10 +1479,15 @@ class BatchServeEngine:
 
     def cancel(self, uid: int) -> None:
         """Drop a QUEUED (not yet batched) request; its handle turns SHED."""
-        handle = _cancellable(self, uid)
+        handle = _cancellable(self, uid, "BatchServeEngine cancels only "
+                              "QUEUED requests (it does not preempt)")
         self._queue = [r for r in self._queue if r.uid != uid]
         handle._mark_shed(self.clock)
         self.stats.sheds += 1
+        if self.telemetry is not None:
+            self.telemetry.on_shed(handle, ticks=self.clock)
+            self.telemetry.sync_stats(self.stats,
+                                      queue_depth=len(self._queue))
 
     def retire(self, uid: int) -> List[int]:
         """As :meth:`ServeEngine.retire`."""
@@ -1074,6 +1506,8 @@ class BatchServeEngine:
         for i, r in enumerate(batch):
             prompts[i, :len(r.prompt)] = r.prompt
             lengths[i] = len(r.prompt)
+        tele = self.telemetry
+        t1 = tele.dispatch_start(self.device) if tele is not None else 0.0
         t0 = time.perf_counter()
         caches = self.model.init_cache(b, self.max_len, kv_bits=self.kv_bits,
                                        device=self.device)
@@ -1086,8 +1520,15 @@ class BatchServeEngine:
         self.stats.prefill_seconds += time.perf_counter() - t0
         self.stats.prefills += b
         self.stats.prefill_tokens += int(lengths.sum())
+        if tele is not None:
+            # One batch-wide prefill (uid -1: the whole batch).
+            tele.on_prefill(uid=-1, tier=self.tier_name,
+                            prompt_len=int(lengths.sum()), t0=t1,
+                            ticks=self.clock, fence=self.device)
         for i, r in enumerate(batch):
             self.handles[r.uid]._mark_admitted(i, self.clock)
+            if tele is not None:
+                tele.on_admit(self.handles[r.uid], slot=i, ticks=self.clock)
         self._active = _BatchState(
             batch=batch, caches=caches, tok=tok_h,
             outs=[[] for _ in range(b)], step_idx=0,
@@ -1113,7 +1554,13 @@ class BatchServeEngine:
                                    tier=self.tier_name,
                                    final=a.step_idx == r.max_new_tokens - 1)
                 events.append(event)
-                self.handles[r.uid]._push(event, self.clock)
+                self.handles[r.uid]._push(event, self.clock,
+                                          defer=self._defer_error)
+                if self.telemetry is not None:
+                    self.telemetry.on_token(event, ticks=self.clock)
+        tele = self.telemetry
+        t1 = tele.dispatch_start(self.device) if tele is not None else 0.0
+        ticks0 = self.clock
         t0 = time.perf_counter()
         logits, a.caches = self.model.decode_step(
             self.params, self.rt, a.caches,
@@ -1125,10 +1572,18 @@ class BatchServeEngine:
         self.stats.decode_chunks += 1
         self.stats.decode_slot_steps += len(a.batch)
         a.step_idx += 1
+        if tele is not None:
+            # Every lane of the batch runs the step.
+            tele.on_decode_chunk(
+                t0=t1, ticks0=ticks0, ticks_end=self.clock, n_steps=1,
+                lanes=[(self.tier_name, 1) for _ in a.batch],
+                fence=self.device)
+            tele.sync_stats(self.stats, queue_depth=len(self._queue))
         if a.step_idx >= a.max_new:
             for i, r in enumerate(a.batch):
                 self.results[r.uid] = a.outs[i][:r.max_new_tokens]
             self._active = None
+        self._raise_deferred()
         return events
 
     def drain(self) -> Dict[int, List[int]]:

@@ -1,7 +1,8 @@
 """Request handles: the streaming half of the serving API (port of
-``repro.serve.handle``; pure host bookkeeping).  The port's engines drive
-``QUEUED -> RUNNING -> FINISHED`` and ``QUEUED -> SHED`` (``cancel``);
-``SUSPENDED`` arrives with preemption (ROADMAP Queue 1 item 6).
+``repro.serve.handle``; pure host bookkeeping).  The engines drive
+``QUEUED -> RUNNING -> FINISHED``, ``RUNNING -> SUSPENDED -> RUNNING``
+(``ServeEngine.preempt`` and the prefill-free resume) and ``QUEUED`` or
+``SUSPENDED -> SHED`` (admission control and ``cancel``).
 
 ``Engine.submit`` returns a :class:`RequestHandle` — the caller's view of
 one in-flight request.  The handle exposes
@@ -195,6 +196,10 @@ class RequestHandle:
         self.slot = slot
         if self.admitted_at is None:     # resumes keep the FIRST admission
             self.admitted_at = now
+
+    def _mark_suspended(self) -> None:
+        self.status = RequestStatus.SUSPENDED
+        self.slot = None
 
     def _mark_shed(self, now: float) -> None:
         self.status = RequestStatus.SHED

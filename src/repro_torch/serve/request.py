@@ -19,10 +19,10 @@ class Request:
     ``PrecisionSchedule`` (None = the schedule's default tier; must stay
     None on untiered engines).  ``deadline`` (scheduler-clock ticks after
     submission) is what ``SLOPolicy`` prices; FIFO admission ignores it.
-    ``tenant`` is carried for per-tenant fairness (ROADMAP Queue 1 item
-    6).  ``sampling`` selects seeded temperature /
-    top-k sampling (None = greedy); ``spec`` turns on self-speculative
-    decoding at a draft tier of the engine's schedule."""
+    ``tenant`` names the request's tenant for ``SLOPolicy``'s
+    ``tenant_weights`` (None weighs 1.0).  ``sampling`` selects seeded
+    temperature / top-k sampling (None = greedy); ``spec`` turns on
+    self-speculative decoding at a draft tier of the engine's schedule."""
 
     uid: int
     prompt: npt.NDArray[np.int32]  # [S] int32

@@ -9,8 +9,10 @@ the slot, tokens emitted so far, decode budget remaining).
   :class:`SchedulerPolicy`: :class:`FIFOPolicy` (the oldest wins) or
   :class:`SLOPolicy` (tightest deadline slack first, the service time
   priced by the tier's modeled array cycles; optional deadline-driven
-  tier auto-selection).  SLOPolicy's overload control (preemption,
-  shedding, tenant weights, time slices) is ROADMAP Queue 1 item 6.
+  tier auto-selection).  The same policy carries the overload control the
+  engine consults: displacement of a RUNNING slot for an urgent request
+  (``preempt``), refusal at submit (``shed``), tenant weights and time
+  slices for best-effort requests.
 * Tier *constraints* are orthogonal to policy: the mixed-tier engine
   admits any tier into any slot (``admit(slot)``), the tier-serialized
   mode only the tier its decode batch runs at (``admit(slot, tier=...)``);
@@ -28,10 +30,6 @@ from typing import (Deque, Dict, List, Mapping, Optional, Protocol, Sequence,
                     Tuple, Union)
 
 from repro_torch.serve.request import Request
-
-TODO_OVERLOAD = ("SLOPolicy's overload control (preempt, shed, "
-                 "tenant_weights, time_slice) is ROADMAP Queue 1 item 6, "
-                 "not ported yet")
 
 
 @dataclasses.dataclass
@@ -65,6 +63,10 @@ class _AnyTier:
 
 ANY_TIER = _AnyTier()   # admit()/peek() sentinel: no tier constraint
 TierFilter = Union[str, None, _AnyTier]
+
+# One RUNNING slot as the overload-control hooks see it:
+# (slot index, request, decode tokens still owed, submission tick).
+RunningEntry = Tuple[int, Request, int, float]
 
 
 class SchedulerPolicy(Protocol):
@@ -101,31 +103,68 @@ class SLOPolicy:
     Without a schedule, or for a tier it does not price, a token costs
     1.0.  ``auto_tier=True`` lets the engine retag a deadlined request at
     admission (:meth:`select_tier`) to the best tier whose priced service
-    still fits its deadline."""
+    still fits its deadline.
+
+    Overload control, all opt-in and consumed by ``ServeEngine``:
+
+    * ``preempt=True``: :meth:`preempt_victim` names a RUNNING request to
+      displace when a queued deadlined request's weighted slack is at or
+      below ``preempt_slack`` and no slot frees in time; the victim must
+      hold strictly more slack (equal urgency never thrashes).
+    * ``shed=True``: :meth:`admission_decision` refuses at submit a
+      deadlined request whose projected completion misses (with
+      ``auto_tier``, names a faster tier that fits instead).
+    * ``time_slice=N`` (ticks, >= 1): the engine preempts a best-effort
+      RUNNING slot whose slice has run N ticks while requests wait.
+    * ``tenant_weights`` (name -> weight >= 1.0): a weighted tenant's
+      queue age counts ``weight`` times (:meth:`weighted_slack`).
+
+    ``remaining_tokens`` (uid -> tokens still owed) is kept by the engine
+    for SUSPENDED requests, so their slack prices only the remainder."""
 
     def __init__(self, schedule: Optional[object] = None, *,
                  auto_tier: bool = False,
                  mac_counts: Optional[Mapping[str, float]] = None,
                  preempt: bool = False,
+                 preempt_slack: float = 0.0,
                  shed: bool = False,
                  tenant_weights: Optional[Mapping[str, float]] = None,
                  time_slice: Optional[int] = None) -> None:
-        if preempt or shed or tenant_weights or time_slice is not None:
-            raise NotImplementedError(TODO_OVERLOAD)
         self.tier_costs: Dict[str, float] = {}
         if schedule is not None:
             from repro_torch.hwmodel.energy import relative_tier_costs
             self.tier_costs = relative_tier_costs(schedule,
                                                   mac_counts=mac_counts)
         self.auto_tier = bool(auto_tier)
+        self.preempt = bool(preempt)
+        self.preempt_slack = float(preempt_slack)
+        self.shed = bool(shed)
+        self.tenant_weights: Dict[str, float] = dict(tenant_weights or {})
+        for tenant, w in self.tenant_weights.items():
+            if w < 1.0:
+                raise ValueError(f"tenant {tenant!r}: weight {w} < 1.0 "
+                                 "(weights only ever ACCELERATE aging)")
+        if time_slice is not None and int(time_slice) < 1:
+            raise ValueError(f"time_slice must be >= 1 scheduler tick, got "
+                             f"{time_slice}")
+        self.time_slice: Optional[int] = \
+            None if time_slice is None else int(time_slice)
+        self.remaining_tokens: Dict[int, int] = {}
 
     def cost(self, tier: Optional[str]) -> float:
         """Relative per-token service cost of a tier (cheapest == 1.0)."""
         return 1.0 if tier is None else self.tier_costs.get(tier, 1.0)
 
+    def weight(self, tenant: Optional[str]) -> float:
+        """Fairness weight of a tenant (1.0 unless listed)."""
+        return 1.0 if tenant is None else self.tenant_weights.get(tenant, 1.0)
+
     def est_service(self, request: Request) -> float:
-        """Estimated service time in scheduler-clock ticks."""
-        return request.max_new_tokens * self.cost(request.tier)
+        """Estimated REMAINING service time in scheduler-clock ticks (a
+        suspended request prices only the tokens still owed)."""
+        owed = self.remaining_tokens.get(request.uid,
+                                         request.max_new_tokens)
+        return owed * self.cost(request.tier)
 
     def slack(self, request: Request, submitted_at: Mapping[int, float],
               now: float) -> float:
@@ -136,6 +175,18 @@ class SLOPolicy:
         due = submitted_at.get(request.uid, now) + request.deadline
         return due - now - self.est_service(request)
 
+    def weighted_slack(self, request: Request,
+                       submitted_at: Mapping[int, float],
+                       now: float) -> float:
+        """Tenant-fair slack: a weighted tenant's queue age counts
+        ``weight`` times.  Equal to :meth:`slack` at weight 1.0 and for a
+        request without a deadline (infinite)."""
+        s = self.slack(request, submitted_at, now)
+        if not math.isfinite(s):
+            return s
+        age = now - submitted_at.get(request.uid, now)
+        return s - (self.weight(request.tenant) - 1.0) * age
+
     def select(self, candidates: Sequence[Request],
                submitted_at: Mapping[int, float],
                now: float) -> Optional[int]:
@@ -145,9 +196,95 @@ class SLOPolicy:
         def key(i: int) -> Tuple[float, float, int]:
             r = candidates[i]
             age = now - submitted_at.get(r.uid, now)
-            return (self.slack(r, submitted_at, now), -age, i)
+            # Ties: the weighted age (submission order without weights),
+            # then the queue position.
+            return (self.weighted_slack(r, submitted_at, now),
+                    -self.weight(r.tenant) * age, i)
 
         return min(range(len(candidates)), key=key)
+
+    def preempt_victim(self, waiting: Sequence[Request],
+                       running: Sequence[RunningEntry],
+                       submitted_at: Mapping[int, float],
+                       now: float) -> Optional[int]:
+        """Uid of the RUNNING request to displace, or None.
+
+        Fires only when (a) some queued deadlined request's weighted slack
+        is at or below ``preempt_slack``, (b) no running slot frees within
+        that slack on its own, and (c) some RUNNING request holds strictly
+        more slack than the urgent one: a best-effort stream (infinite
+        slack) first, then the lightest tenant and the longest remaining
+        stream."""
+        if not self.preempt or not running:
+            return None
+        urgent_slack = math.inf
+        for r in waiting:
+            if r.deadline is not None:
+                urgent_slack = min(urgent_slack,
+                                   self.weighted_slack(r, submitted_at, now))
+        if urgent_slack > self.preempt_slack:
+            return None
+        free_in = min(rem for _, _, rem, _ in running)
+        if free_in <= max(urgent_slack, 0.0):
+            return None            # a slot frees in time on its own
+
+        def victim_key(entry: RunningEntry) -> Tuple[float, float, int, int]:
+            slot, req, rem, tick = entry
+            if req.deadline is None:
+                s = math.inf
+            else:
+                s = (tick + req.deadline) - now - rem * self.cost(req.tier)
+            return (s, -self.weight(req.tenant), rem, -slot)
+
+        victim = max(running, key=victim_key)
+        if victim_key(victim)[0] <= urgent_slack:
+            return None            # nobody is strictly lower priority
+        return victim[1].uid
+
+    def admission_decision(self, request: Request,
+                           waiting: Sequence[Request],
+                           running: Sequence[RunningEntry],
+                           num_slots: int,
+                           submitted_at: Mapping[int, float],
+                           now: float) -> str:
+        """Admission control at submit: ``"admit"``, ``"shed"``, or a tier
+        name to downtier to (``auto_tier`` only).
+
+        The work that outranks the request (queued requests with tighter
+        or equal weighted slack, and running work that cannot be displaced:
+        deadlined streams with tighter slack, or everything running when
+        ``preempt`` is off) is served first, spread over the slots; the
+        request fits a tier when that wait plus its priced service meets
+        its deadline.  A request without a deadline is always admitted."""
+        if not self.shed or request.deadline is None:
+            return "admit"
+        budget = float(request.deadline)     # submitted at ``now``
+        s_req = budget - self.est_service(request)
+        ahead = 0.0
+        for r in waiting:
+            if self.weighted_slack(r, submitted_at, now) <= s_req:
+                ahead += self.est_service(r)
+        for _, req, rem, tick in running:
+            service = rem * self.cost(req.tier)
+            if req.deadline is None:
+                if not self.preempt:
+                    ahead += service
+                continue               # a displaceable best-effort stream
+            run_slack = (tick + req.deadline) - now - service
+            if run_slack <= s_req or not self.preempt:
+                ahead += service
+        wait = ahead / max(num_slots, 1)
+
+        def feasible(cost: float) -> bool:
+            return wait + request.max_new_tokens * cost <= budget
+
+        if feasible(self.cost(request.tier)):
+            return "admit"
+        if self.auto_tier and self.tier_costs:
+            fits = [t for t in self.tier_costs if feasible(self.tier_costs[t])]
+            if fits:
+                return max(fits, key=lambda t: (self.tier_costs[t], t))
+        return "shed"
 
     def select_tier(self, request: Request, submitted_at_tick: float,
                     now: float) -> Optional[str]:
@@ -241,6 +378,16 @@ class Scheduler:
 
     def occupied(self) -> List[Tuple[int, SlotState]]:
         return [(i, s) for i, s in enumerate(self.slots) if s is not None]
+
+    def evict(self, slot: int) -> SlotState:
+        """Free an occupied slot WITHOUT recording it finished (the
+        preemption half of :meth:`release`); returns its state for the
+        engine's ``SuspendedState``."""
+        state = self.slots[slot]
+        if state is None:
+            raise ValueError(f"slot {slot} is already free")
+        self.slots[slot] = None
+        return state
 
     def release(self, slot: int) -> SlotState:
         """Free a finished slot, recording its output tokens."""

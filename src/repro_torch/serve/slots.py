@@ -6,7 +6,10 @@ The arena is the model's cache list (``LM.init_cache``): one
 ``slot_view`` cuts one slot out as a batch-1 cache whose tensors are VIEWS
 of the arena, so a prefill through the view writes the arena in place;
 ``slot_write`` copies a batch-1 cache into a slot and ``slot_reset`` zeroes
-one slot's state, lengths included.  In the mixed per-slot KV arena
+one slot's state, lengths included.  ``slot_snapshot`` copies one slot's
+state to the host (the preemption snapshot: a COPY, since a view would
+change when the slot is reused) and ``slot_restore`` writes it into any
+slot.  In the mixed per-slot KV arena
 ``fill_kv_tier`` sets an admitted slot's tier code and ``migrate_kv_tier``
 requantizes a live slot at a new one.  The host-side ``SlotArena.tiers``
 vector records which precision tier holds each slot.
@@ -30,6 +33,9 @@ import torch
 from repro_torch.models.layers import KVCache
 
 Caches = List[Dict[str, KVCache]]
+# One slot's state: per layer, per position, the KVCache tensors by name.
+Snapshot = List[Dict[str, Dict[str, torch.Tensor]]]
+_FIELDS = ("k", "v", "k_scale", "v_scale", "length", "kv_bits")
 
 
 def slot_view(caches: Caches, slot: int) -> Caches:
@@ -55,6 +61,44 @@ def slot_reset(caches: Caches, slot: int) -> Caches:
         for c in layer.values():
             for t in c.slot(slot).tensors():
                 t.zero_()
+    return caches
+
+
+def _slot_fields(cache: KVCache, slot: int) -> Dict[str, torch.Tensor]:
+    """Every tensor of one slot of ``cache`` (views), by field name."""
+    view = cache.slot(slot)
+    return {f: getattr(view, f) for f in _FIELDS
+            if getattr(view, f) is not None}
+
+
+def slot_template(caches: Caches) -> Snapshot:
+    """The tree of a snapshot (views of slot 0): what a spilled snapshot
+    is restored into."""
+    return [{pos: _slot_fields(c, 0) for pos, c in layer.items()}
+            for layer in caches]
+
+
+def slot_snapshot(caches: Caches, slot: int) -> Snapshot:
+    """A host copy of one slot's whole state: K/V lanes, scale rows, the
+    length and (mixed arena) the tier code of every layer.  The copies are
+    complete when this returns."""
+    return [{pos: {f: t.to("cpu", copy=True)
+                   for f, t in _slot_fields(c, slot).items()}
+             for pos, c in layer.items()} for layer in caches]
+
+
+def snapshot_nbytes(snap: Snapshot) -> int:
+    return sum(t.numel() * t.element_size()
+               for layer in snap for fields in layer.values()
+               for t in fields.values())
+
+
+def slot_restore(caches: Caches, snap: Snapshot, slot: int) -> Caches:
+    """Write a snapshot into slot ``slot`` (any slot), in place."""
+    for layer, sub in zip(caches, snap, strict=True):
+        for pos, c in layer.items():
+            for f, dst in _slot_fields(c, slot).items():
+                dst.copy_(sub[pos][f])
     return caches
 
 

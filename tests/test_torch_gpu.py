@@ -606,3 +606,67 @@ def test_mixed_kv_arena_on_cuda_equals_cpu(gen):
                 arenas.append(c)
             for x, y in zip(arenas[0].tensors(), arenas[1].tensors()):
                 assert torch.equal(x.cpu(), y), (src, dst)
+
+
+# ------------------------------------------------ preemption and resume
+KV_TIERS = {"8/8": None, "4/4": 8, "2/2": 4}
+
+
+def _kv_engine(model, params, **kw):
+    sched = uniform_schedule(SPEC_TIERS, backend="cuda", kv_tiers=KV_TIERS)
+    return ServeEngine(model, params, Runtime(policy=sched.policy_for(),
+                                              schedule=sched),
+                       **{"max_batch": 8, "max_len": 128, **kw})
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_preempt_spill_resume_equals_uninterrupted(gen, packed, tmp_path):
+    """At 4 layers of full width on the mixed KV arena: every request
+    running after the first round is preempted (every other one spilled)
+    and resumes without a kernel launch, and every stream equals the
+    uninterrupted run's."""
+    from repro_torch.serve.handle import RequestStatus
+    model, params = _full_width(gen, packed)
+    reqs = _spec_requests(151936, spec=False, sampled=False)
+    want = _kv_engine(model, params).run(reqs)
+    eng = _kv_engine(model, params, spill_dir=str(tmp_path))
+    handles = {r.uid: eng.submit(r) for r in reqs}
+    eng.step()
+    running = [u for u, h in handles.items()
+               if h.status is RequestStatus.RUNNING]
+    for i, uid in enumerate(running):
+        eng._spill_dir = str(tmp_path) if i % 2 else None
+        assert eng.preempt(uid).nbytes > 0
+    eng._spill_dir = str(tmp_path)
+    resume, launched = eng._resume_into, []
+
+    def resuming(*args):
+        before = sum(_build.LAUNCHES.values())
+        resume(*args)
+        launched.append(sum(_build.LAUNCHES.values()) - before)
+    eng._resume_into = resuming
+    assert eng.drain() == want
+    assert launched == [0] * len(running) == [0] * eng.stats.resumes
+    assert eng.stats.spill_bytes > 0 and list(tmp_path.iterdir()) == []
+
+
+def test_decode_dispatch_count_equals_one_step_launches(gen):
+    """decode_dispatch_count at a three-tier layout equals the launches of
+    one decode step there: kernels 2 and 4, once per projection and the
+    head (4 and 7 per layer, 46 at 4 layers)."""
+    model, params = _full_width(gen)
+    eng = _kv_engine(model, params, count_dispatches=True)
+    for r in _spec_requests(151936, spec=False, sampled=False):
+        eng.submit(r)
+    eng.step()
+    groups = eng._group_layout()[0]
+    assert len(groups) == 3
+    n = eng.decode_dispatch_count(groups=groups)
+    assert n == (4 * 4 + 1) + (7 * 4 + 1)
+    assert eng.stats.decode_dispatches[groups] == n
+    _build.reset_launches()
+    eng._decode_chunk(eng._runtime(), 1)
+    torch.cuda.synchronize()
+    assert sum(_build.LAUNCHES.values()) == n
+    assert _build.LAUNCHES["act_quant_rows"] == 4 * 4 + 1
+    assert _build.LAUNCHES["grouped_dequant_matmul"] == 7 * 4 + 1

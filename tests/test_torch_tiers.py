@@ -423,8 +423,11 @@ def test_slo_policy_matches_the_reference():
             assert mine.slack(c, sub, now) == ref.slack(jc, sub, now)
             assert mine.select_tier(c, sub[c.uid], now) == \
                 ref.select_tier(jc, sub[c.uid], now)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        SLOPolicy(sched, preempt=True)
+    # The overload options are served (tests/test_torch_overload.py) and
+    # validated as the reference validates them.
+    assert SLOPolicy(sched, preempt=True).preempt
+    with pytest.raises(ValueError, match="time_slice"):
+        SLOPolicy(sched, time_slice=0)
 
 
 def test_scheduler_tier_filter():
