@@ -18,12 +18,14 @@ Phases, in order (any failure exits non-zero and prints no result line):
 2. parity   each kernel against its plain PyTorch version, bit-equal,
             tolerance 0.  Kernels 1 and 2: bf16 and f32 input, without and
             with a row gather (a shuffle with a repeated row), M in {1, 5,
-            8, 64}, K in {96, 4096, 4100, 12288}, widths 2-8 signed and 8
+            8, 64}, K in {96, 2048, 4096, 4100, 5120, 8192, 12288},
+            widths 2-8 signed and 8
             unsigned (kernel 1) and per-row qmax 127/7/1 (kernel 2), with
             zero rows and rows on .5 boundaries after the divide, and two
             views (rows apart, a misaligned base).  The GEMMs at the
             serving shapes (M in {8, 64}; K=4096 -> N in {4096, 1024,
-            12288, 152064}; K=12288 -> N=4096) and one ragged shape (M=5,
+            12288, 152064}; K=12288 -> N=4096; phase 4e's
+            ``ARCH_GEMM_SHAPES``) and one ragged shape (M=5,
             K=4100, N=1000).  Kernels 3 and 5 also run M in
             {16, 17, 40} at the serving shapes (prefill buckets, a ragged
             row tile), and with kernel 1 (every width, bf16 and f32, K in
@@ -125,6 +127,25 @@ Phases, in order (any failure exits non-zero and prints no result line):
             (d) At 4 layers, for both stores: (a) and (c) on ``cuda`` and on
             the plain ``decomposed`` backend, which must launch nothing,
             with equal streams.
+4e. archs   the SSM, hybrid and MoE layers, seeded torch weights, tiers
+            8/8 4/4 2/2, max_batch 8, 9 requests of 16 tokens (prompts of
+            16-64).  (a) mamba2-1.3b at full width and depth (48 layers):
+            the int8-plane store (its quantized-weight count must equal the
+            shapes' 1,342,701,568), greedy speculation (uid % 3 != 2, draft
+            2/2, k = 4) and one preemption of an SSM slot mid-decode
+            (resumed prefill-free in another slot, launching nothing) must
+            reproduce its streams, and so must the packed store of the same
+            seed; ``decode_dispatch_count`` must equal the count derived
+            from the code (194).  (b) llama4-scout at full width, its depth
+            cut to 4 of 48 layers (``reduced: num_layers 48→4``: the store
+            of all 48 would not fit one card): int8 planes, then the packed
+            store, with equal streams and 366 launches per decode step.
+            (c) Against the plain ``decomposed`` replay (equal streams, no
+            launch): the reduced jamba (attention, Mamba, MLP and MoE
+            layers), plain and speculative (speculative == plain), with a
+            spilled hybrid snapshot restored; llama4 at one layer of full
+            width.  Prints the store bytes, peak memory, step ms, tokens/s,
+            launches, snapshot bytes and dispatch counts.
 5. fixed    the quickstart form, --w-bits 4 with the int8 KV cache and
             then the int4 one (--kv-bits 8, 4; LSB-first planes), at full
             width with the depth cut to 4 layers; for each, the ``cuda``
@@ -134,6 +155,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
             (kernels 2 and 4 also at the verify window, M = 40 in the
             three-tier verify layout; kernels 3 and 5 also at M in {65,
             192, 512}, P = 4 and 1),
+            and at phase 4e's shapes (kernels 1 and 2 at K = 2048, 5120
+            and 8192; the GEMMs at mamba2's in/out projections and llama4's
+            expert projections, ``ARCH_GEMM_SHAPES``),
             with a cold L2 cache (as a decode step finds the weights) and
             the call enqueued before the card reaches it (a spin first),
             beside its bound on this card (the GEMMs' operations counted
@@ -184,6 +208,9 @@ PATH_OF = {"act_quant": "mixed", "act_quant_rows": "mixed",
            "packed_bitserial_matmul": "packed", "grouped_matmul": "parity"}
 GEMM_SHAPES = ((4096, 4096), (4096, 1024), (4096, 12288), (4096, 152064),
                (12288, 4096))
+# (K, N) of phase 4e's projections: mamba2-1.3b's in_proj and out_proj,
+# a llama4-scout expert's gate/up and down.
+ARCH_GEMM_SHAPES = ((2048, 8512), (4096, 2048), (5120, 8192), (8192, 5120))
 # Rows of a BatchServeEngine prefill (rows x padded prompt): past one
 # 64-row tile, up to 8 x 64.
 PREFILL_ROWS = (65, 192, 512)
@@ -436,7 +463,8 @@ def _act_rows(m: int, k: int, qmaxes, signed: bool, gen):
 def _act_quant_cases(gen):
     """Kernels 1 and 2's parity inputs: yields (x, perm), ``x`` mapping
     each of kernel 1's widths (bits, signed) and "rows" (kernel 2) to its
-    input.  M in {1, 5, 8, 64}, K in {96, 4096, 4100, 12288}, bf16 and f32,
+    input.  M in {1, 5, 8, 64}, K in {96, 2048, 4096, 4100, 5120, 8192,
+    12288} (2048, 5120 and 8192: phase 4e's generic path), bf16 and f32,
     without and with ``perm`` (a shuffle with a repeated row; int32 for
     bf16, int64 for f32); then at K = 4096 and 12288, M = 8, two views:
     rows 8 elements apart, and a base one element past a 16-byte
@@ -450,7 +478,7 @@ def _act_quant_cases(gen):
         x["rows"] = _act_rows(m, k, ROWS_QMAX, True, gen)
         return {key: view(t.to(dtype)) for key, t in x.items()}
 
-    for k in (96, 4096, 4100, 12288):
+    for k in (96, 2048, 4096, 4100, 5120, 8192, 12288):
         for m in (1, 5, 8, 64):
             for dtype in (torch.float32, torch.bfloat16):
                 x = inputs(m, k, dtype)
@@ -511,7 +539,8 @@ def phase_parity() -> dict:
         hold("act_quant_rows", got[0], want[0])
         hold("act_quant_rows", got[1], want[1])
     sync()
-    shapes = [(m, k, n) for m in (8, 64) for k, n in GEMM_SHAPES]
+    shapes = [(m, k, n) for m in (8, 64)
+              for k, n in GEMM_SHAPES + ARCH_GEMM_SHAPES]
     shapes.append((5, 4100, 1000))
     for m, k, n in shapes:
         x, planes = _inputs(m, k, n, gen)
@@ -728,18 +757,22 @@ def _check_streams(label: str, out, reqs, vocab: int) -> None:
             raise AssertionError(f"{label}: uid {r.uid} token out of range")
 
 
-def _build_model(layers: int, policy, superplane: bool, seed: int,
-                 packed: bool = False, prepare: bool = True):
-    """qwen3-8b at full width, ``layers`` deep, random weights from
-    ``seed``; prepared layer by layer unless ``prepare`` is False (the
-    float weights then go to the engine, which prepares them)."""
+def _build_model(layers, policy, superplane: bool, seed: int,
+                 packed: bool = False, prepare: bool = True,
+                 arch: str = "qwen3-8b", reduced: bool = False):
+    """``arch`` (qwen3-8b unless named; its reduced config if ``reduced``)
+    at full width, ``layers`` deep (None: the config's depth), random
+    weights from ``seed``; prepared period by period unless ``prepare`` is
+    False (the float weights then go to the engine, which prepares them)."""
     import dataclasses
 
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, reduced_config
     from repro_torch.models.transformer import LM
     from repro_torch.serve import engine as engine_mod
-    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=layers)
+    cfg = reduced_config(arch) if reduced else get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = LM(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -749,9 +782,9 @@ def _build_model(layers: int, policy, superplane: bool, seed: int,
                             tree, policy, prefix=prefix,
                             superplane=superplane, packed=packed))
     sync()
-    log(f"[model] qwen3-8b width {cfg.d_model}, {cfg.num_heads} heads, "
+    log(f"[model] {cfg.name} width {cfg.d_model}, {cfg.num_heads} heads, "
         f"{cfg.num_kv_heads} kv heads, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.padded_vocab}, {layers} layers: initialised"
+        f"{cfg.padded_vocab}, {cfg.num_layers} layers: initialised"
         f"{f' + prepared (packed={packed})' if prepare else ''} in "
         f"{time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
@@ -1830,6 +1863,275 @@ def phase_overload(tiers: dict, card: str) -> dict:
     return {"launches": launches, **timing}
 
 
+# --------------------------------------------------------------- phase 4e
+MAMBA2, LLAMA4, JAMBA = ("mamba2-1.3b", "llama4-scout-17b-a16e",
+                         "jamba-1.5-large-398b")
+LLAMA4_LAYERS = 4
+# Quantized weights of each store, counted from the configs' shapes
+# (PERF.md, phase 4e's prediction): mamba2-1.3b at its 48 layers, llama4
+# at 4 of its 48 (16 routed experts and the shared one per layer).
+ARCH_WEIGHTS = {MAMBA2: 1_342_701_568, LLAMA4: 9_843_507_200}
+ARCH_USED = ("act_quant", "act_quant_rows", "bitserial_matmul",
+             "grouped_dequant_matmul")
+ARCH_USED_PACKED = ("act_quant", "act_quant_rows", "packed_bitserial_matmul",
+                    "grouped_dequant_matmul")
+
+
+def _store_size(params) -> tuple:
+    """(quantized weights, store bytes) of a prepared params tree; an
+    expert-stacked weight counts every expert."""
+    from repro_torch.kernels import ops
+    weights = nbytes = 0
+    stack = [params]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, list):
+            stack.extend(t)
+        elif isinstance(t, ops.QuantizedWeight):
+            store = t.packed if t.packed is not None else t.planes
+            nbytes += store.numel() * store.element_size()
+            weights += store.numel() // (1 if t.packed is not None
+                                         else store.shape[-3])
+    return weights, nbytes
+
+
+def _dispatches_per_step(cfg) -> int:
+    """Kernel launches of one mixed-tier decode step, from the code: two
+    (kernel 2's act-quant, kernel 4's GEMM) per projection input and one
+    kernel 4 per further projection reading it (q/k/v share one
+    act-quant, and so do an MLP's or an expert's gate and up), plus the
+    head's two.  Every expert runs every step (capacity dispatch)."""
+    per = {"attn": 6, "mamba": 4, "mlp": 5, None: 0,
+           "moe": 5 * cfg.num_experts + (5 if cfg.shared_expert else 0)}
+    return cfg.n_periods * sum(per[m] + per[f]
+                               for m, f in cfg.period_pattern()) + 2
+
+
+def _add_launches(total: dict, res: dict) -> None:
+    for k, v in res["stats"]["launches"].items():
+        total[k] = total.get(k, 0) + v
+
+
+def _check_dispatches(label: str, eng, cfg) -> int:
+    """``decode_dispatch_count`` at a three-tier layout equals the count
+    derived from the code."""
+    names = list(TIERS)
+    groups = eng._group_layout([names[i % len(names)]
+                                for i in range(eng.max_batch)])[0]
+    n = eng.decode_dispatch_count(groups=groups)
+    want = _dispatches_per_step(cfg)
+    if n != want:
+        raise AssertionError(f"{label}: decode_dispatch_count {n}, the code "
+                             f"gives {want}")
+    log(f"[{label}] decode_dispatch_count at {groups}: {n} (derived: {want})")
+    return n
+
+
+def _ssm_preempt(model, params, rt, reqs, label: str) -> dict:
+    """Serve ``reqs``; after the first round preempt uid 0 (an SSM slot
+    mid-decode).  The waiting request takes its slot, so uid 0 resumes
+    prefill-free in another one.  Returns the streams, the snapshot bytes,
+    the slots left and resumed in, and each resume's kernel launches."""
+    from repro_torch.serve import engine as engine_mod
+    eng = engine_mod.ServeEngine(model, params, rt, **MIXED_KW)
+    deltas, moves = [], []
+    resume = eng._resume_into
+
+    def resuming(slot, req, sus):
+        moves.append(slot)
+        return resume(slot, req, sus)
+    eng._resume_into = _launch_delta(resuming, deltas)
+    handles = {r.uid: eng.submit(r) for r in reqs}
+    eng.step()
+    left = handles[0].slot
+    sync()
+    t0 = time.perf_counter()
+    sus = eng.preempt(0)
+    preempt_ms = 1e3 * (time.perf_counter() - t0)
+    out = eng.drain()
+    if moves == [left] or len(moves) != 1:
+        raise AssertionError(f"{label}: uid 0 left slot {left}, resumed in "
+                             f"{moves}")
+    if any(v for d in deltas for v in d.values()):
+        raise AssertionError(f"{label}: a resume launched kernels: {deltas}")
+    rec = {"nbytes": sus.nbytes, "slots": [left] + moves,
+           "preempt_ms": preempt_ms}
+    log(f"[{label}] " + json.dumps(rec))
+    return {**rec, "tokens": out}
+
+
+def _arch_plain_replay(label: str, model, params, reqs, spec: bool) -> None:
+    """Serve ``reqs`` (``spec``: uid % 3 != 2 speculating) on ``cuda`` and
+    on the plain ``decomposed`` backend: equal streams, the plain run
+    launching nothing."""
+    from repro_torch.core.policy import uniform_schedule
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve import engine as engine_mod
+    runs = {}
+    for backend in ("cuda", "decomposed"):
+        sched = uniform_schedule(TIERS, backend=backend)
+        eng = engine_mod.ServeEngine(model, params, Runtime(
+            policy=sched.policy_for(), schedule=sched), **MIXED_KW)
+        runs[backend] = _serve(eng, _variant(reqs, spec=spec, sampled=False),
+                               f"{label}-{backend}")
+    _check_launches(label, runs["cuda"]["stats"]["launches"], ARCH_USED, ())
+    _check_plain(label, runs["decomposed"], runs["cuda"])
+    return runs
+
+
+def phase_archs(card: str) -> dict:
+    """Phase 4e: the SSM, hybrid and MoE layers served on the card."""
+    import tempfile
+
+    import torch
+    from repro_torch.core.policy import uniform_schedule
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve import engine as engine_mod
+    sched = uniform_schedule(TIERS, backend="cuda")
+    rt = Runtime(policy=sched.policy_for(), schedule=sched)
+    launches: dict = {}
+    res_out: dict = {"card": card}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) mamba2-1.3b, full width and depth: int8 planes, greedy
+    # speculation, a preemption, then the packed store.
+    cfg, model, params = _build_model(None, sched.prepare_policy(),
+                                      superplane=True, seed=0, arch=MAMBA2)
+    weights, nbytes = _store_size(params)
+    if weights != ARCH_WEIGHTS[MAMBA2]:
+        raise AssertionError(f"mamba2: {weights} quantized weights, the "
+                             f"shapes give {ARCH_WEIGHTS[MAMBA2]}")
+    reqs = _requests(9, cfg.vocab_size, 16, list(TIERS), seed=1)
+    eng = engine_mod.ServeEngine(model, params, rt, **MIXED_KW)
+    plain = _serve(eng, reqs, "archs-mamba2")
+    _check_streams("archs-mamba2", plain["tokens"], reqs, cfg.padded_vocab)
+    _check_launches("archs-mamba2", plain["stats"]["launches"], ARCH_USED,
+                    ("packed_bitserial_matmul", "grouped_matmul"))
+    if eng.stats.mixed_tier_chunks == 0:
+        raise AssertionError("archs-mamba2: no decode chunk mixed tiers")
+    _add_launches(launches, plain)
+    m2 = {"store_weights": weights, "store_bytes": nbytes,
+          "dispatches": _check_dispatches("archs-mamba2", eng, cfg),
+          "planes": plain["stats"]}
+    del eng
+    eng = engine_mod.ServeEngine(model, params, rt, **MIXED_KW)
+    spec = _serve(eng, _variant(reqs, spec=True, sampled=False),
+                  "archs-mamba2-spec")
+    _check_same("archs-mamba2-spec", spec["tokens"], plain["tokens"],
+                "the plain (non-speculative) streams")
+    _add_launches(launches, spec)
+    m2["spec"] = {**spec["stats"], **_spec_stats(eng)}
+    del eng
+    pre = _ssm_preempt(model, params, rt, reqs, "archs-mamba2-preempt")
+    _check_same("archs-mamba2-preempt", pre["tokens"], plain["tokens"],
+                "the uninterrupted streams")
+    m2["preempt"] = {k: pre[k] for k in ("nbytes", "slots", "preempt_ms")}
+    del model, params
+    free()
+    cfg, model, params = _build_model(None, sched.prepare_policy(),
+                                      superplane=True, seed=0, arch=MAMBA2,
+                                      packed=True)
+    m2["packed_store_bytes"] = _store_size(params)[1]
+    eng = engine_mod.ServeEngine(model, params, rt, **MIXED_KW)
+    packed = _serve(eng, reqs, "archs-mamba2-packed")
+    _check_launches("archs-mamba2-packed", packed["stats"]["launches"],
+                    ARCH_USED_PACKED, ("bitserial_matmul", "grouped_matmul"))
+    _check_same("archs-mamba2-packed", packed["tokens"], plain["tokens"],
+                "the int8-plane store's")
+    _add_launches(launches, packed)
+    m2["packed"] = packed["stats"]
+    res_out[MAMBA2] = m2
+    del eng, model, params
+    free()
+
+    # (b) llama4-scout at full width, cut to LLAMA4_LAYERS layers: planes,
+    # then the packed store of the same seed.
+    l4: dict = {}
+    streams = None
+    for store in ("planes", "packed"):
+        cfg, model, params = _build_model(
+            LLAMA4_LAYERS, sched.prepare_policy(), superplane=True, seed=0,
+            arch=LLAMA4, packed=store == "packed")
+        if store == "planes":
+            log(f"[archs-llama4] reduced: num_layers 48→{LLAMA4_LAYERS}")
+        weights, nbytes = _store_size(params)
+        if weights != ARCH_WEIGHTS[LLAMA4]:
+            raise AssertionError(f"llama4: {weights} quantized weights, the "
+                                 f"shapes give {ARCH_WEIGHTS[LLAMA4]}")
+        reqs = _requests(9, cfg.vocab_size, 16, list(TIERS), seed=1)
+        eng = engine_mod.ServeEngine(model, params, rt, **MIXED_KW)
+        res = _serve(eng, reqs, f"archs-llama4-{store}")
+        _check_streams(f"archs-llama4-{store}", res["tokens"], reqs,
+                       cfg.padded_vocab)
+        _check_launches(f"archs-llama4-{store}", res["stats"]["launches"],
+                        ARCH_USED if store == "planes" else ARCH_USED_PACKED,
+                        ("grouped_matmul",))
+        if streams is None:
+            streams = res["tokens"]
+        _check_same(f"archs-llama4-{store}", res["tokens"], streams,
+                    "the int8-plane store's")
+        _add_launches(launches, res)
+        l4[store] = {**res["stats"], "store_weights": weights,
+                     "store_bytes": nbytes,
+                     "dispatches": _check_dispatches(
+                         f"archs-llama4-{store}", eng, cfg)}
+        del eng, model, params
+        free()
+    res_out[LLAMA4] = l4
+
+    # (c) Against the plain replay: the reduced jamba (attention, Mamba,
+    # MLP and MoE layers; plain and speculative, and a spilled hybrid
+    # snapshot) and llama4 at one layer of full width.
+    cfg, model, params = _build_model(None, sched.prepare_policy(),
+                                      superplane=True, seed=0, arch=JAMBA,
+                                      reduced=True)
+    reqs = _requests(9, cfg.vocab_size, 16, list(TIERS), seed=1)
+    jb = {}
+    for spec in (False, True):
+        runs = _arch_plain_replay(f"archs-jamba-{'spec' if spec else 'plain'}",
+                                  model, params, reqs, spec)
+        if spec:
+            _check_same("archs-jamba-spec", runs["cuda"]["tokens"],
+                        jb["plain"]["tokens"], "the plain streams")
+        jb["spec" if spec else "plain"] = runs["cuda"]
+    with tempfile.TemporaryDirectory() as spill:
+        eng = engine_mod.ServeEngine(model, params, rt, spill_dir=spill,
+                                     **MIXED_KW)
+        handles = {r.uid: eng.submit(r) for r in reqs}
+        eng.step()
+        sus = eng.preempt(1)
+        eng._spiller.wait()
+        spilled = os.listdir(spill)
+        out = eng.drain()
+        if not spilled or os.listdir(spill) or eng.stats.resumes != 1:
+            raise AssertionError(f"archs-jamba-spill: spilled {spilled}, "
+                                 f"left {os.listdir(spill)}")
+        _check_same("archs-jamba-spill", out, jb["plain"]["tokens"],
+                    "the uninterrupted streams")
+        log(f"[archs-jamba-spill] snapshot {sus.nbytes} B spilled to "
+            f"{spilled} and restored; streams equal")
+        del eng, handles
+    res_out[JAMBA] = {k: v["stats"] for k, v in jb.items()}
+    del model, params
+    free()
+    cfg, model, params = _build_model(1, sched.prepare_policy(),
+                                      superplane=True, seed=0, arch=LLAMA4)
+    reqs = _requests(4, cfg.vocab_size, 8, list(TIERS), seed=1)
+    _arch_plain_replay("archs-llama4-1", model, params, reqs, False)
+    del model, params
+    free()
+    res_out["launches"] = launches
+    log("[archs] " + json.dumps({k: v for k, v in res_out.items()
+                                 if k != "launches"}, default=str))
+    return res_out
+
+
+
 
 def phase_fixed() -> dict:
     from repro_torch.core.policy import uniform_policy
@@ -2099,6 +2401,59 @@ def phase_times() -> dict:
                 2.0 * m * k * n)
         del x, planes, packed, pre
         torch.cuda.empty_cache()
+    # Phase 4e's new shapes: mamba2-1.3b's in_proj (K = 2048, N = 8512)
+    # and out_proj (K = 4096), llama4's experts (K = 5120, N = 8192; down:
+    # K = 8192, N = 5120).  Kernels 1 and 2 at K = 2048, 5120 and 8192
+    # take the generic path (no register-resident instantiation there).
+    for m, k in ((8, 2048), (64, 2048), (8, 5120), (64, 5120), (8, 8192),
+                 (64, 8192)):
+        xb = torch.randn((m, k), device="cuda", generator=gen
+                         ).to(torch.bfloat16)
+        perm = torch.randperm(m, device="cuda", generator=gen)
+        qmax = torch.full((m, 1), 7.0, device="cuda")
+        out = m * k + m * 4
+        row("act_quant", f"M={m} K={k} bits=8 bf16",
+            lambda: aq.act_quant(xb), lambda: ref.act_quant_ref(xb),
+            2 * m * k + out, 0)
+        row("act_quant_rows", f"M={m} K={k} bf16 perm",
+            lambda: aq.act_quant_rows(xb, qmax, perm=perm),
+            lambda: ref.act_quant_rows_ref(xb, qmax, perm=perm),
+            2 * m * k + out + m * 12, 0)
+    for m in (8, 64):
+        for k, n in ARCH_GEMM_SHAPES:
+            x, planes = _inputs(m, k, n, gen)
+            packed = ops.pack_planes(planes.flip(0), 8)
+            lib = None
+            if m > 16:
+                w8 = decompose.recompose_weights(
+                    planes.flip(0), 8).to(torch.int8).contiguous()
+                lib = (lambda x=x, w8=w8: torch._int_mm(x, w8))
+                row("bitserial_matmul", f"M={m} K={k} N={n} P=4",
+                    lambda: bsm.bitserial_matmul(
+                        x, planes, decompose.prefix_shifts(4)),
+                    lambda: ref.bitserial_matmul_ref(
+                        x, planes, decompose.prefix_shifts(4)),
+                    m * k + 4 * k * n + 4 * m * n, 2.0 * m * k * n, lib)
+                row("packed_bitserial_matmul", f"M={m} K={k} N={n} P=4",
+                    lambda: bsm.packed_bitserial_matmul(x, packed, w_bits=8,
+                                                        eff_bits=8),
+                    lambda: ref.packed_bitserial_matmul_ref(x, packed, 8, 8),
+                    m * k + k * n + 4 * m * n, 2.0 * m * k * n, lib)
+            else:
+                mult, xs, ws, rg = _grouped_args(_mixed_layout(m), n, gen)
+                scales = m * 16 + m * 4 + 3 * n * 4 + m * 4
+                for label, w, lay in (("", planes, {}),
+                                      (" packed", packed, {"packed": True})):
+                    row("grouped_dequant_matmul",
+                        f"M={m} K={k} N={n} Pmax=4{label}",
+                        lambda w=w, lay=lay: gmm.grouped_dequant_matmul(
+                            x, w, mult, xs, ws, rg, **lay),
+                        lambda w=w, lay=lay: ref.grouped_dequant_matmul_ref(
+                            x, w, mult, xs, ws, rg, **lay),
+                        m * k + w.numel() + scales + 2 * m * n,
+                        2.0 * m * k * n)
+            del x, planes, packed, lib
+            torch.cuda.empty_cache()
     return {"rows": rows, "launch_floor_ms": floor}
 
 
@@ -2141,6 +2496,7 @@ def main() -> int:
                                                      out["build"]["card"])),
                        ("overload", lambda: phase_overload(
                            out["tiers"], out["build"]["card"])),
+                       ("archs", lambda: phase_archs(out["build"]["card"])),
                        ("fixed", phase_fixed), ("times", phase_times)):
         t = time.perf_counter()
         out[phase] = run()
@@ -2165,7 +2521,8 @@ def main() -> int:
             "library_ms": t["library_ms"], "shape": t["shape"],
             "launches_by_path": {path: out[path]["launches"][name]
                                  for path in ("parity", "mixed", "packed",
-                                              "spec", "tiers", "overload")}}
+                                              "spec", "tiers", "overload",
+                                              "archs")}}
         if name.startswith("act_quant"):
             entry["launch_floor_ms"] = out["times"]["launch_floor_ms"]
         if name == "grouped_dequant_matmul":   # its packed mode, on "packed"

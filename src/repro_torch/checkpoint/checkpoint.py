@@ -9,8 +9,10 @@ save leaves only a .tmp dir, which ``list_steps`` and ``restore`` ignore.
 The layout is the reference's, byte for byte: leaves in the order
 ``jax.tree_util.tree_flatten`` gives (dict keys sorted, lists in order),
 each named by its ``jax.tree_util.keystr`` path (``['a'][0]``), and bf16
-stored as f32 with its dtype recorded.  A checkpoint of the same nested
-dict of arrays therefore restores bit-equal in either package.
+stored as f32 with its dtype recorded.  A :class:`Fields` node stands for
+a registered dataclass of the reference (its data fields in declaration
+order, named ``.field``).  A checkpoint of the same tree of arrays
+therefore restores bit-equal in either package.
 
 Leaves may be numpy arrays or torch tensors (copied to the host at save).
 The serving engine spills preempted-slot snapshots through this module
@@ -32,11 +34,24 @@ import torch
 from repro_torch.device import resolve_device
 
 
+class Fields(dict):
+    """A node that flattens as a ``jax.tree_util.register_dataclass``
+    instance does: its entries in insertion order (the data fields'
+    declaration order), each named ``.<key>``; a None entry is an empty
+    subtree.  The serving engine's spilled snapshots use it for the cache
+    dataclasses (``serve.slots.spill_tree``)."""
+
+
 def _flatten(tree: Any, path: str = "") -> List[Tuple[str, Any]]:
     """(keystr path, leaf) pairs in ``jax.tree_util`` order; None is an
     empty subtree, as in jax."""
-    if isinstance(tree, dict):
+    if isinstance(tree, Fields):
         out: List[Tuple[str, Any]] = []
+        for key, val in tree.items():
+            out += _flatten(val, f"{path}.{key}")
+        return out
+    if isinstance(tree, dict):
+        out = []
         for key in sorted(tree):
             out += _flatten(tree[key], f"{path}[{key!r}]")
         return out
@@ -52,6 +67,9 @@ def _flatten(tree: Any, path: str = "") -> List[Tuple[str, Any]]:
 
 def _unflatten(tree: Any, leaves: Dict[str, Any], path: str = "") -> Any:
     """``tree`` with every leaf replaced by ``leaves[its path]``."""
+    if isinstance(tree, Fields):
+        return Fields((key, _unflatten(val, leaves, f"{path}.{key}"))
+                      for key, val in tree.items())
     if isinstance(tree, dict):
         return {key: _unflatten(val, leaves, f"{path}[{key!r}]")
                 for key, val in tree.items()}

@@ -10,7 +10,11 @@ layer.  bf16 arrays (numpy has no bf16 of its own) travel through a
 ``repro.kernels.ops.QuantizedWeight`` leaf (int8 planes or the uint8
 packed store, and the scale) becomes the port's
 :class:`~repro_torch.kernels.ops.QuantizedWeight`, so stores prepared by
-the two packages can be compared exactly.
+the two packages can be compared exactly; an MoE projection's keeps its
+leading expert axis once the periods are unstacked (planes [E, P, K, N]
+or packed [E, K, N], scale [E, 1, N]: the port's expert-stacked store).
+SSM leaves (``A_log``, ``dt_bias``, ``D`` in f32; ``conv_w``, ``conv_b``
+in bf16) and the f32 router convert as they are.
 
 This module does not import jax: it receives numpy and recognises a
 prepared weight by its fields.

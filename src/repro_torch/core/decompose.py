@@ -12,7 +12,7 @@ summation order, on the CPU and on the card alike.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,11 +60,11 @@ def weight_range(w_bits: int, signed: bool) -> tuple[int, int]:
     return 0, (1 << w_bits) - 1
 
 
-def decompose_weights(w: torch.Tensor, w_bits: int, *,
-                      signed: bool = True) -> torch.Tensor:
-    """Integer weights -> int8 planes ``[P, *w.shape]``, LSB-first (plane
-    ``c`` weighs ``4**c``).  The MSB plane is signed iff ``signed``; the
-    other planes are unsigned 2-bit values in [0, 3]."""
+def _plane_list(w: torch.Tensor, w_bits: int,
+                signed: bool) -> List[torch.Tensor]:
+    """The int8 planes of :func:`decompose_weights`, LSB first, each made
+    int8 as soon as it exists (a weight of 10^9 entries then needs one
+    int32 copy at a time, not one per plane)."""
     if w_bits not in DECOMP_SCHEDULE:
         raise ValueError(f"w_bits must be in {SUPPORTED_BITS}, got {w_bits}")
     widths = plane_widths_lsb_first(w_bits, signed)
@@ -78,9 +78,17 @@ def decompose_weights(w: torch.Tensor, w_bits: int, *,
             # Reinterpret the MSB chunk as a `width`-bit signed value.
             chunk = torch.where(chunk >= (1 << (width - 1)),
                                 chunk - (1 << width), chunk)
-        planes.append(chunk)
+        planes.append(chunk.to(torch.int8))
         shift += width
-    return torch.stack(planes).to(torch.int8)
+    return planes
+
+
+def decompose_weights(w: torch.Tensor, w_bits: int, *,
+                      signed: bool = True) -> torch.Tensor:
+    """Integer weights -> int8 planes ``[P, *w.shape]``, LSB-first (plane
+    ``c`` weighs ``4**c``).  The MSB plane is signed iff ``signed``; the
+    other planes are unsigned 2-bit values in [0, 3]."""
+    return torch.stack(_plane_list(w, w_bits, signed))
 
 
 def recompose_weights(planes: torch.Tensor, w_bits: int, *,
@@ -112,7 +120,7 @@ def decompose_superplanes(q8: torch.Tensor, *,
                           signed: bool = True) -> torch.Tensor:
     """8-bit integer weight -> four MSB-FIRST 2-bit planes, int8
     ``[4, *q8.shape]``; ``planes[0]`` carries the sign iff ``signed``."""
-    return decompose_weights(q8, SUPERPLANE_BITS, signed=signed).flip(0)
+    return torch.stack(_plane_list(q8, SUPERPLANE_BITS, signed)[::-1])
 
 
 def num_prefix_planes(eff_bits: int) -> int:

@@ -65,6 +65,8 @@ class QuantizedWeight:
     # the artifact: neither compared nor copied by dataclasses.replace).
     _group_scales: Dict[Tuple[int, ...], torch.Tensor] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
+    _experts: Dict[int, "QuantizedWeight"] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def kn(self) -> Tuple[int, int]:
@@ -72,6 +74,20 @@ class QuantizedWeight:
             return self.planes.shape[1], self.planes.shape[2]
         assert self.packed is not None
         return self.packed.shape[0], self.packed.shape[1]
+
+    def expert(self, i: int) -> "QuantizedWeight":
+        """Expert ``i`` of an expert-stacked store (planes [E, P, K, N] or
+        packed [E, K, N], scale [E, 1, N]) as a 2-D weight whose tensors
+        are views of this one's; made once and kept, with its scale
+        tables."""
+        view = self._experts.get(i)
+        if view is None:
+            view = dataclasses.replace(
+                self, planes=None if self.planes is None else self.planes[i],
+                packed=None if self.packed is None else self.packed[i],
+                scale=self.scale[i])
+            self._experts[i] = view
+        return view
 
     def get_planes(self) -> torch.Tensor:
         """Planes in this artifact's declared order (MSB-first iff

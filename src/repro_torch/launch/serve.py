@@ -12,6 +12,14 @@ mixed-tier batches):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --reduced --tiers 8/8 4/4 2/2 --requests 9
 
+Every registered arch serves, the SSM, hybrid and MoE ones included
+(``--arch mamba2-1.3b``, ``jamba-1.5-large-398b``,
+``llama4-scout-17b-a16e``, ``grok-1-314b``); a ``--reduced`` model's MoE
+layers dispatch dropless:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+        --reduced --tiers 8/8 4/4 2/2 --device cpu
+
 ``--packed`` prepares the byte-packed store (one uint8 per weight in place
 of int8 planes; even widths only, odd ``--w-bits`` keep their planes).
 ``--kv-bits 8`` or ``4`` quantizes the KV cache (int8, or int4 packed two
@@ -266,7 +274,9 @@ def main(argv=None):
             + f", packed={args.packed}")
     print(f"initialised {cfg.name} ({kind}) on {device} in "
           f"{time.time() - t0:.1f}s")
-    rt = Runtime(policy=policy, schedule=schedule)
+    # A reduced model serves its MoE layers dropless, as the reference's
+    # command line does.
+    rt = Runtime(policy=policy, moe_dropless=args.reduced, schedule=schedule)
     # The command line always serves with telemetry: the report at the end,
     # --metrics and --trace-out read it.
     tele = Telemetry(profile=args.profile)

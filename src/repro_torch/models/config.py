@@ -78,27 +78,80 @@ class ArchConfig:
         assert self.num_layers % p == 0, (self.num_layers, p)
         return self.num_layers // p
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    def param_count(self) -> int:
+        """Approximate parameter count (the reference's formula)."""
+        d, dh = self.d_model, self.head_dim or 0
+        n = self.vocab_size * d  # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * d
+        for mixer, ff in self.period_pattern() * self.n_periods:
+            if mixer == "attn":
+                n += d * (self.num_heads * dh) + 2 * d * (self.num_kv_heads * dh) \
+                    + (self.num_heads * dh) * d
+            else:
+                di, ns, hh = self.d_inner, self.ssm_state, self.ssm_heads
+                n += d * (2 * di + 2 * ns + hh) + di * d   # in_proj + out_proj
+                n += (di + 2 * ns) * self.ssm_conv + 2 * hh + di  # conv, A, dt, D
+            if ff == "mlp":
+                n += 3 * d * self.d_ff
+            elif ff == "moe":
+                n += d * self.num_experts  # router
+                n += self.num_experts * 3 * d * self.d_ff
+                if self.shared_expert:
+                    n += 3 * d * self.d_ff
+        return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed experts count)."""
+        if not self.moe:
+            return self.param_count()
+        n_moe_layers = sum(1 for _, ff in self.period_pattern() * self.n_periods
+                           if ff == "moe")
+        inactive = self.num_experts - self.experts_per_token
+        return self.param_count() - n_moe_layers * inactive * 3 \
+            * self.d_model * self.d_ff
+
     def quant_layer_macs(self) -> "dict[str, int]":
         """MACs per decoded token of every quantized projection, keyed by
         its policy layer name (``layers.pos{i}.<block>.<proj>``, plus
-        ``lm_head``); a name covers all ``n_periods`` instances.  What
-        ``SLOPolicy`` prices a schedule's tiers with (attention + MLP
-        layers; SSM and MoE layers are ROADMAP Queue 1 item 8)."""
+        ``lm_head``); a name covers all ``n_periods`` instances.  MoE
+        projections count the ``experts_per_token`` routed experts only;
+        routers, convs and tied embeddings are not quantized.  What
+        ``SLOPolicy`` and ``hwmodel.energy`` price a schedule's tiers with."""
         d, dh, n = self.d_model, self.head_dim or 0, self.n_periods
         macs: "dict[str, int]" = {}
         for i, (mixer, ff) in enumerate(self.period_pattern()):
-            if mixer != "attn" or ff != "mlp":
-                raise NotImplementedError(
-                    f"{self.name}: SSM and MoE layers are ROADMAP Queue 1 "
-                    "item 8")
             base = f"layers.pos{i}"
-            macs[f"{base}.attn.q_proj"] = n * d * self.num_heads * dh
-            macs[f"{base}.attn.k_proj"] = n * d * self.num_kv_heads * dh
-            macs[f"{base}.attn.v_proj"] = n * d * self.num_kv_heads * dh
-            macs[f"{base}.attn.o_proj"] = n * self.num_heads * dh * d
-            macs[f"{base}.mlp.gate_proj"] = n * d * self.d_ff
-            macs[f"{base}.mlp.up_proj"] = n * d * self.d_ff
-            macs[f"{base}.mlp.down_proj"] = n * self.d_ff * d
+            if mixer == "attn":
+                macs[f"{base}.attn.q_proj"] = n * d * self.num_heads * dh
+                macs[f"{base}.attn.k_proj"] = n * d * self.num_kv_heads * dh
+                macs[f"{base}.attn.v_proj"] = n * d * self.num_kv_heads * dh
+                macs[f"{base}.attn.o_proj"] = n * self.num_heads * dh * d
+            else:
+                di, ns, hh = self.d_inner, self.ssm_state, self.ssm_heads
+                macs[f"{base}.mamba.in_proj"] = n * d * (2 * di + 2 * ns + hh)
+                macs[f"{base}.mamba.out_proj"] = n * di * d
+            if ff == "mlp":
+                macs[f"{base}.mlp.gate_proj"] = n * d * self.d_ff
+                macs[f"{base}.mlp.up_proj"] = n * d * self.d_ff
+                macs[f"{base}.mlp.down_proj"] = n * self.d_ff * d
+            elif ff == "moe":
+                k = self.experts_per_token
+                macs[f"{base}.moe.gate_proj"] = n * k * d * self.d_ff
+                macs[f"{base}.moe.up_proj"] = n * k * d * self.d_ff
+                macs[f"{base}.moe.down_proj"] = n * k * self.d_ff * d
+                if self.shared_expert:
+                    macs[f"{base}.moe.shared.gate_proj"] = n * d * self.d_ff
+                    macs[f"{base}.moe.shared.up_proj"] = n * d * self.d_ff
+                    macs[f"{base}.moe.shared.down_proj"] = n * self.d_ff * d
         if not self.tie_embeddings:
             macs["lm_head"] = d * self.padded_vocab
         return macs

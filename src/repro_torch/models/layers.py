@@ -1,5 +1,5 @@
-"""Model building blocks (port of ``repro.models.layers``, attention + MLP):
-norms, RoPE, the quantized linear, flash attention, the KV cache.
+"""Model building blocks (port of ``repro.models.layers``): norms, RoPE,
+the quantized linear, flash attention, the KV cache, the SwiGLU MLP.
 
 Every projection routes through ``kernels.ops.matmul`` under the layer's
 ``LayerPrecision``.  Unlike the reference, which is functional, the KV cache
@@ -38,9 +38,11 @@ class Runtime:
     describing contiguous tier-sorted slot groups; ``perm``/``inv_perm``
     are int64 [B] tensors mapping batch rows into and out of that order.
     ``fused`` selects ONE group-switching GEMM per projection (default)
-    over the per-group reference loop."""
+    over the per-group reference loop.  ``moe_dropless`` gives every MoE
+    layer a capacity of the whole sequence (no token is dropped)."""
 
     policy: PrecisionPolicy
+    moe_dropless: bool = False
     schedule: Optional[PrecisionSchedule] = None
     tier: Optional[str] = None
     groups: Optional[tuple] = None
@@ -293,6 +295,9 @@ class KVCache:
     kv_bits: Optional[torch.Tensor] = None   # int32 [B] tier codes (mixed)
     modes: Optional[tuple] = None            # codes served, descending
 
+    # The tensor fields, in the reference's pytree order (its data fields).
+    FIELDS = ("k", "v", "k_scale", "v_scale", "length", "kv_bits")
+
     @property
     def quantized(self) -> bool:
         """Homogeneous int8 storage."""
@@ -359,15 +364,14 @@ class KVCache:
 
     def tensors(self) -> List[torch.Tensor]:
         """Every tensor of the cache (the state a slot holds)."""
-        return [t for t in (self.k, self.v, self.k_scale, self.v_scale,
-                            self.length, self.kv_bits) if t is not None]
+        return [t for t in (getattr(self, f) for f in self.FIELDS)
+                if t is not None]
 
     def slot(self, slot: int) -> "KVCache":
         """A batch-1 view of one slot; writes through it land in self."""
         sl = slice(slot, slot + 1)
         return KVCache(*[None if t is None else t[sl] for t in (
-            self.k, self.v, self.k_scale, self.v_scale, self.length,
-            self.kv_bits)], modes=self.modes)
+            getattr(self, f) for f in self.FIELDS)], modes=self.modes)
 
     # ------------------------------------------------- mixed-mode encoding
     def _slot_select(self, per_mode: List[torch.Tensor]) -> torch.Tensor:

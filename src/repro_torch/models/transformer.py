@@ -1,12 +1,14 @@
-"""Decoder-only LM, attention + MLP layers (port of
-``repro.models.transformer``).
+"""Decoder-only LM stack (port of ``repro.models.transformer``) for every
+period pattern: attention or Mamba2 mixers, each followed by a SwiGLU MLP,
+an MoE block or nothing (dense, MoE, hybrid and pure-SSM archs).
 
 Parameters are a plain dict of tensors.  Where the reference stacks the
-layers of its period pattern along a leading axis and scans over them, the
-port keeps a list with one period dict per layer, ``params["layers"][i]
-["pos0"]["attn"]["q_proj"]["w"]``, so a projection's policy name is the
+periods of its pattern along a leading axis and scans over them, the port
+keeps a list with one dict per period, ``params["layers"][i]["pos0"]
+["attn"]["q_proj"]["w"]``, so a projection's policy name is the
 reference's (``layers.pos0.attn.q_proj``; list indices are not part of it).
-Caches mirror that: a list of ``{"pos0": KVCache}`` per layer.
+Caches mirror that: a list of ``{"pos<j>": KVCache or SSMCache}`` per
+period.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.config import ArchConfig
 
 # A hook applied to each freshly initialised sub-tree with its key path
@@ -28,18 +30,14 @@ class LM:
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
         self.pattern = cfg.period_pattern()
-        if any(m != "attn" or ff != "mlp" for m, ff in self.pattern):
-            raise NotImplementedError(
-                f"{cfg.name}: only attention + MLP layers are ported; SSM, "
-                "hybrid and MoE layers are ROADMAP Queue 1 item 8")
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator, *, device=None,
              prepare: Optional[PrepareHook] = None) -> Dict[str, Any]:
         """Random weights from ``gen`` on ``device`` (default cuda), made
-        layer by layer.  ``prepare`` (if given) replaces each layer's float
-        tree as soon as it exists, so at most one layer of float weights
-        is ever alive."""
+        period by period.  ``prepare`` (if given) replaces each period's
+        float tree as soon as it exists, so at most one period of float
+        weights is ever alive."""
         cfg, dev = self.cfg, resolve_device(device)
         dt = cfg.dtype
         emb = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
@@ -48,13 +46,21 @@ class LM:
         del emb
         for i in range(cfg.n_periods):
             period: Dict[str, Any] = {}
-            for j, _ in enumerate(self.pattern):
-                period[f"pos{j}"] = {
-                    "mixer_norm": layers.rmsnorm_init(cfg.d_model, dt, dev),
-                    "attn": layers.attention_init(gen, cfg, dt, dev),
-                    "ff_norm": layers.rmsnorm_init(cfg.d_model, dt, dev),
-                    "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, dev),
-                }
+            for j, (mixer, ff) in enumerate(self.pattern):
+                blk: Dict[str, Any] = {
+                    "mixer_norm": layers.rmsnorm_init(cfg.d_model, dt, dev)}
+                if mixer == "attn":
+                    blk["attn"] = layers.attention_init(gen, cfg, dt, dev)
+                else:
+                    blk["mamba"] = ssm.ssm_init(gen, cfg, dt, dev)
+                if ff is not None:
+                    blk["ff_norm"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
+                    if ff == "mlp":
+                        blk["mlp"] = layers.mlp_init(gen, cfg.d_model,
+                                                     cfg.d_ff, dt, dev)
+                    else:
+                        blk["moe"] = moe.moe_init(gen, cfg, dt, dev)
+                period[f"pos{j}"] = blk
             if prepare is not None:
                 period = prepare(period, ("layers", i))
             params["layers"].append(period)
@@ -92,44 +98,74 @@ class LM:
                rt: layers.Runtime, caches: Optional[List[Dict[str, Any]]] = None,
                seq_lengths: Optional[torch.Tensor] = None,
                active: Optional[torch.Tensor] = None,
-               verify_window: bool = False) -> torch.Tensor:
+               verify_window: bool = False
+               ) -> Tuple[torch.Tensor, Optional[List[Dict[str, Any]]]]:
+        """The periods over x.  Returns (x, caches): the caches as the
+        mixers return them (the same objects, written in place, except a
+        verify window's per-step stacked SSM caches)."""
         cfg = self.cfg
+        new_caches: Optional[List[Dict[str, Any]]] = \
+            None if caches is None else []
         for li, period in enumerate(params["layers"]):
-            for j, _ in enumerate(self.pattern):
+            layer_caches: Dict[str, Any] = {}
+            for j, (mixer, ff) in enumerate(self.pattern):
                 blk = period[f"pos{j}"]
                 cache = None if caches is None else caches[li][f"pos{j}"]
                 h = self._norm(blk["mixer_norm"], x, verify_window)
-                out, _ = layers.attention_apply(
-                    blk["attn"], h, rt, cfg, f"layers.pos{j}.attn",
-                    cache=cache, seq_lengths=seq_lengths, active=active,
-                    verify_window=verify_window)
+                if mixer == "attn":
+                    out, nc = layers.attention_apply(
+                        blk["attn"], h, rt, cfg, f"layers.pos{j}.attn",
+                        cache=cache, seq_lengths=seq_lengths, active=active,
+                        verify_window=verify_window)
+                else:
+                    out, nc = ssm.ssm_apply(
+                        blk["mamba"], h, rt, cfg, f"layers.pos{j}.mamba",
+                        cache=cache, seq_lengths=seq_lengths, active=active,
+                        verify_window=verify_window)
                 x = x + out
+                layer_caches[f"pos{j}"] = nc
+                if ff is None:
+                    continue
                 h2 = self._norm(blk["ff_norm"], x, verify_window)
-                x = x + layers.mlp_apply(blk["mlp"], h2, rt,
-                                         f"layers.pos{j}.mlp",
-                                         verify_window=verify_window)
-        return x
+                if ff == "mlp":
+                    x = x + layers.mlp_apply(blk["mlp"], h2, rt,
+                                             f"layers.pos{j}.mlp",
+                                             verify_window=verify_window)
+                else:
+                    x = x + moe.moe_apply(blk["moe"], h2, rt, cfg,
+                                          f"layers.pos{j}.moe",
+                                          verify_window=verify_window)
+            if new_caches is not None:
+                new_caches.append(layer_caches)
+        return x, new_caches
 
     # ---------------------------------------------------------------- public
     def forward(self, params: Dict[str, Any], rt: layers.Runtime,
                 tokens: torch.Tensor) -> torch.Tensor:
         """Full-sequence forward without a cache.  Returns logits [B, S, V]."""
-        x = self._stack(params, self._embed(params, tokens), rt)
+        x, _ = self._stack(params, self._embed(params, tokens), rt)
         return self._head(params, x, rt)
 
     def init_cache(self, batch: int, max_len: int, kv_bits: Any = None,
                    device=None) -> List[Dict[str, Any]]:
-        """One ``{"pos<j>": KVCache}`` dict per layer; ``kv_bits`` None
-        (bf16), 8 (int8), 4 (int4 packed) or a tuple of tier codes such as
-        ``(16, 8, 4)`` for the mixed per-slot arena
-        (``layers.KVCache.create``).  Every tensor starts at zero — scales
-        and the mixed arena's tier codes included — as the reference's
-        arena does."""
+        """One ``{"pos<j>": cache}`` dict per period: a ``KVCache`` at
+        attention positions, ``kv_bits`` None (bf16), 8 (int8), 4 (int4
+        packed) or a tuple of tier codes such as ``(16, 8, 4)`` for the
+        mixed per-slot arena (``layers.KVCache.create``), and an
+        ``ssm.SSMCache`` at Mamba positions.  Every tensor starts at zero —
+        scales and the mixed arena's tier codes included — as the
+        reference's arena does."""
         cfg, dev = self.cfg, resolve_device(device)
-        caches = [{f"pos{j}": layers.KVCache.create(
-                      batch, max_len, cfg.num_kv_heads, cfg.head_dim,
-                      dtype=cfg.dtype, kv_bits=kv_bits, device=dev)
-                   for j, _ in enumerate(self.pattern)}
+
+        def make(mixer: str) -> Any:
+            if mixer == "attn":
+                return layers.KVCache.create(
+                    batch, max_len, cfg.num_kv_heads, cfg.head_dim,
+                    dtype=cfg.dtype, kv_bits=kv_bits, device=dev)
+            return ssm.SSMCache.create(batch, cfg, device=dev)
+
+        caches = [{f"pos{j}": make(mixer)
+                   for j, (mixer, _) in enumerate(self.pattern)}
                   for _ in range(cfg.n_periods)]
         for layer in caches:
             for c in layer.values():
@@ -144,8 +180,8 @@ class LM:
         from position 0.  ``seq_lengths`` [B] supports right-padded batches:
         logits are gathered at each row's last REAL position.
         Returns (logits [B, 1, V], caches)."""
-        x = self._stack(params, self._embed(params, tokens), rt,
-                        caches=caches, seq_lengths=seq_lengths)
+        x, _ = self._stack(params, self._embed(params, tokens), rt,
+                           caches=caches, seq_lengths=seq_lengths)
         if seq_lengths is None:
             last = x[:, -1:]
         else:
@@ -160,8 +196,8 @@ class LM:
         """One-token decode against filled caches; ``active`` [B] masks the
         cache writes of finished or empty slots.
         Returns (logits [B, 1, V], caches)."""
-        x = self._stack(params, self._embed(params, tokens), rt,
-                        caches=caches, active=active)
+        x, _ = self._stack(params, self._embed(params, tokens), rt,
+                           caches=caches, active=active)
         return self._head(params, x, rt), caches
 
     def verify_step(self, params: Dict[str, Any], rt: layers.Runtime,
@@ -173,10 +209,14 @@ class LM:
         position-j logits and KV writes are bit-identical to the j-th of W
         sequential :meth:`decode_step` calls (see
         ``layers.attention_apply(verify_window=True)``).  ``active`` [B]
-        masks every cache write.  The caches come back appended by W, in
+        masks every cache write.  KV caches come back appended by W, in
         place; the engine rolls rejected positions back by a length
-        truncation (``serve.slots.truncate_kv_lengths``).
+        truncation (``serve.slots.truncate_kv_lengths``).  SSM caches are
+        not written: the returned list holds, at their positions, the
+        per-step states stacked ([W, B, ...]), from which the engine keeps
+        each slot's last accepted step (``serve.slots.select_verify_step``).
         Returns (logits [B, W, V], caches)."""
-        x = self._stack(params, self._embed(params, tokens), rt,
-                        caches=caches, active=active, verify_window=True)
-        return self._head(params, x, rt, verify_window=True), caches
+        x, new_caches = self._stack(params, self._embed(params, tokens), rt,
+                                    caches=caches, active=active,
+                                    verify_window=True)
+        return self._head(params, x, rt, verify_window=True), new_caches

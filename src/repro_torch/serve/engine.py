@@ -42,12 +42,14 @@ rounds, overload control and telemetry hooks, and the batch-at-a-time
 * **Self-speculative rounds** — when an occupied slot's request sets
   ``spec``, the round drafts k tokens with the spec slots re-tagged to
   their draft tier (a plane prefix of the same store), rolls their draft
-  KV back, verifies the (k+1)-token window in ONE ``LM.verify_step`` at the
-  normal layout and emits the accepted prefix plus a correction token
+  KV lengths and SSM rows back, verifies the (k+1)-token window in ONE
+  ``LM.verify_step`` at the normal layout and emits the accepted prefix
+  plus a correction token
   (``spec.speculate``).  Plain slots decode k ordinary steps in the same
   batches.
 * **Overload survival** — ``preempt(uid)`` copies a RUNNING slot's cache
-  (every tensor of its ``KVCache``: lanes, scale rows, length, tier code)
+  (every tensor of its ``KVCache``: lanes, scale rows, length, tier code;
+  of its ``SSMCache``: conv window and SSD state)
   to the host with its decode state as a :class:`SuspendedState`
   (optionally spilled to ``spill_dir`` through ``repro_torch.checkpoint``);
   the request waits at its original submission tick and resumes
@@ -113,34 +115,54 @@ def _layer_name(path: Tuple[Any, ...]) -> str:
     return ".".join(parts)
 
 
+def _prepare_2d(w: torch.Tensor, prec: Any, superplane: bool,
+                packed: bool) -> ops.QuantizedWeight:
+    w = w.to(torch.float32)
+    if superplane:
+        return ops.prepare_superplane(w, signed=prec.w_signed, packed=packed)
+    return ops.prepare_weight(w, prec, packed=packed)
+
+
+def _stack_prepared(qws: List[ops.QuantizedWeight]) -> ops.QuantizedWeight:
+    """Per-expert prepared weights as one expert-stacked store (planes
+    [E, P, K, N] or packed [E, K, N], scale [E, 1, N]), the reference's
+    ``jax.vmap(prep)`` layout."""
+    def stack(field: str) -> Optional[torch.Tensor]:
+        ts = [getattr(q, field) for q in qws]
+        return None if ts[0] is None else torch.stack(ts)
+    return dataclasses.replace(qws[0], planes=stack("planes"),
+                               packed=stack("packed"), scale=stack("scale"))
+
+
 def prepare_tree(tree: Any, policy: PrecisionPolicy, *,
                  superplane: bool = False, packed: bool = False,
                  prefix: Tuple[Any, ...] = (),
                  paths: Optional[List[str]] = None) -> Any:
     """A copy of ``tree`` (dicts and lists of tensors) with every projection
-    weight — a 2D ``w`` outside the embedding — replaced by its
-    QuantizedWeight (the superplane store if ``superplane``; byte-packed
-    if ``packed``).  ``prefix``
-    is the key path of ``tree`` inside the full params, which names each
-    weight for the policy lookup.  Does not count as a ``prepare_params``
-    call: it is the per-subtree worker (``LM.init``'s prepare hook)."""
+    weight — a ``w`` of 2 or more dims outside the embedding, the MoE
+    router and the conv — replaced by its QuantizedWeight (the superplane
+    store if ``superplane``; byte-packed if ``packed``).  An expert-stacked
+    ``w`` [E, K, N] is prepared one [K, N] slice at a time and stacked.
+    ``prefix`` is the key path of ``tree`` inside the full params, which
+    names each weight for the policy lookup.  Does not count as a
+    ``prepare_params`` call: it is the per-subtree worker (``LM.init``'s
+    prepare hook)."""
     if isinstance(tree, dict):
         out = {}
         for key, val in tree.items():
             path = prefix + (key,)
             is_proj = (key == "w" and isinstance(val, torch.Tensor)
-                       and val.ndim >= 2 and "embed" not in path)
+                       and val.ndim >= 2 and not any(
+                           skip in str(p) for p in path
+                           for skip in ("embed", "router")))
             if is_proj:
-                if val.ndim != 2:
-                    raise NotImplementedError(
-                        "stacked (expert) weights arrive with MoE, ROADMAP "
-                        "Queue 1 item 8")
                 prec = policy.lookup(_layer_name(path))
-                w = val.to(torch.float32)
-                out[key] = (ops.prepare_superplane(w, signed=prec.w_signed,
-                                                   packed=packed)
-                            if superplane
-                            else ops.prepare_weight(w, prec, packed=packed))
+                if val.ndim == 2:
+                    out[key] = _prepare_2d(val, prec, superplane, packed)
+                else:
+                    out[key] = _stack_prepared([
+                        _prepare_2d(w2, prec, superplane, packed)
+                        for w2 in val.reshape((-1,) + val.shape[-2:])])
                 if paths is not None:
                     paths.append(".".join(map(str, path)))
             else:
@@ -289,7 +311,8 @@ class SuspendedState:
     the request, the tokens already emitted, the decode budget still owed,
     the last emitted token (the next decode step's input), the sampling
     draw counter, and the slot's cache (``slots.slot_snapshot``: every
-    tensor of every layer's batch-1 ``KVCache``, copied to the host).  The
+    tensor of every layer's batch-1 ``KVCache`` or ``SSMCache``, copied to
+    the host).  The
     snapshot fits any slot.  ``cache`` is None once it was spilled to disk
     (``spill_step`` names the checkpoint step under ``spill_dir``);
     ``nbytes`` is its size either way."""
@@ -786,8 +809,9 @@ class ServeEngine(_DeferredErrors):
                                     ticks=self.clock, resumed=True)
 
     def _spill(self, sus: SuspendedState) -> SuspendedState:
-        """Write a snapshot through the checkpoint module and drop it from
-        host memory.  ``keep=0``: live spills are never collected;
+        """Write a snapshot through the checkpoint module, in the
+        reference's layout (``slots.spill_tree``: either package restores
+        it), and drop it from host memory.  ``keep=0``: live spills are never collected;
         :meth:`_unspill` removes each step dir as its request resumes."""
         assert self._spill_dir is not None
         if self._spiller is None:
@@ -795,7 +819,7 @@ class ServeEngine(_DeferredErrors):
                 self._spill_dir, keep=0)
         step = self._spill_counter
         self._spill_counter += 1
-        self._spiller.save(step, sus.cache, extra={
+        self._spiller.save(step, slots_lib.spill_tree(sus.cache), extra={
             "uid": sus.request.uid, "tokens": sus.tokens,
             "remaining": sus.remaining, "last_token": sus.last_token,
             "tier": sus.request.tier})
@@ -810,9 +834,9 @@ class ServeEngine(_DeferredErrors):
         self._spiller.wait()
         tree, _ = checkpoint_lib.restore(
             self._spill_dir, sus.spill_step,
-            target=slots_lib.slot_template(self.arena.caches), device="cpu")
+            target=slots_lib.spill_template(self.arena.caches), device="cpu")
         checkpoint_lib.remove(self._spill_dir, sus.spill_step)
-        return tree
+        return slots_lib.unspill_tree(tree)
 
     def _drop_suspended(self, uid: int) -> None:
         """Discard a suspension's snapshot (its spill dir too) and its
@@ -1191,12 +1215,14 @@ class ServeEngine(_DeferredErrors):
         Draft: k chained decode steps at ``rt_draft``; spec slots
         (``spec_mask``) draft without spending budget, plain slots take
         ordinary decode steps.  Rollback: the spec slots' lengths go back
-        to their pre-draft values (``slots.merge_slots``).  Verify: the
+        to their pre-draft values and their SSM rows to a device copy
+        taken before the draft (``slots.merge_slots``).  Verify: the
         window ``[t0, d1..dk]`` through ONE ``verify_step`` at
         ``rt_verify``, writing spec slots only.  Then acceptance against
         the verify distributions, ``e = min(m+1, remaining)`` emitted
-        tokens, the rejected positions' lengths rewound and the draw
-        counters of sampled spec slots advanced by ``k + 1``.  Returns host
+        tokens, the rejected positions' lengths rewound, each spec slot's
+        SSM rows set to the verify's step ``e - 1`` and the draw counters
+        of sampled spec slots advanced by ``k + 1``.  Returns host
         copies of tok, remaining, draws [B], the draft tokens and plain
         actives [k, B], the emission window [B, k+1], e and m [B]."""
         dev = self.device
@@ -1205,7 +1231,7 @@ class ServeEngine(_DeferredErrors):
         tok = torch.from_numpy(self._tok).to(dev)
         remaining = torch.from_numpy(self._remaining).to(dev)
         tok0 = tok
-        saved = slots_lib.kv_lengths(caches)
+        saved = slots_lib.pre_draft_state(caches, spec_mask)
         dtoks, dact, qps = [], [], []
         for _ in range(k):
             active = remaining > 0
@@ -1225,8 +1251,8 @@ class ServeEngine(_DeferredErrors):
         slots_lib.merge_slots(caches, saved, spec_mask)
         drafts = torch.stack(dtoks, dim=1)                     # [B, k]
         window = torch.cat([tok0[:, None], drafts], dim=1)     # [B, k+1]
-        vlogits, _ = self.model.verify_step(self.params, rt_verify, caches,
-                                            tokens=window, active=spec_mask)
+        vlogits, verified = self.model.verify_step(
+            self.params, rt_verify, caches, tokens=window, active=spec_mask)
         batch, width = window.shape
         p = self._probs(vlogits.reshape(batch * width, -1),
                         temp.repeat_interleave(width),
@@ -1240,7 +1266,8 @@ class ServeEngine(_DeferredErrors):
                         torch.zeros_like(m))
         last_idx = torch.clamp(e - 1, 0, width - 1)
         slots_lib.truncate_kv_lengths(caches, width - e, spec_mask)
-        slots_lib.select_verify_step(caches, last_idx)
+        slots_lib.select_verify_step(caches, verified, last_idx)
+        del verified
         last = emit.gather(1, last_idx[:, None].to(torch.int64))[:, 0]
         tok = torch.where(spec_mask, last, tok)
         remaining = remaining - e

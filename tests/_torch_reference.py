@@ -1,6 +1,6 @@
-"""Shared by the port's serving tests: the JAX package's reduced qwen3-8b,
-its weights converted into the port, and its ``ServeEngine`` run in a
-subprocess.
+"""Shared by the port's serving tests: the JAX package's reduced models
+(qwen3-8b unless a run names another arch), their weights converted into
+the port, and its ``ServeEngine`` run in a subprocess.
 
 The reference engine runs with
 ``XLA_FLAGS=--xla_allow_excess_precision=false``: by default XLA:CPU keeps
@@ -43,20 +43,32 @@ from repro.models.transformer import LM
 from repro.serve.engine import Request, ServeEngine
 from repro.spec import SamplingParams, SpecConfig
 spec = json.loads(sys.argv[1])
-model = LM(reduced_config("qwen3-8b"))
-params = model.init(jax.random.PRNGKey(0))
-h = hashlib.sha1()
-for leaf in jax.tree.leaves(params):
-    h.update(np.ascontiguousarray(np.asarray(leaf)).tobytes())
+models, checksums = {}, {}
+
+
+def model_of(arch):
+    if arch not in models:
+        model = LM(reduced_config(arch))
+        params = model.init(jax.random.PRNGKey(0))
+        h = hashlib.sha1()
+        for leaf in jax.tree.leaves(params):
+            h.update(np.ascontiguousarray(np.asarray(leaf)).tobytes())
+        models[arch], checksums[arch] = (model, params), h.hexdigest()
+    return models[arch]
+
+
 sched = uniform_schedule({t: tuple(b) for t, b in spec["tiers"].items()},
                          backend="decomposed")
 rt = Runtime(policy=sched.policy_for(), mode="serve", schedule=sched)
 runs = []
 for run in spec["runs"]:
     kw = dict(spec["engine"])
+    arch = "qwen3-8b"
     if isinstance(run, dict):
-        kw.update(run["engine"])
+        kw.update(run.get("engine", {}))
+        arch = run.get("arch", arch)
         run = run["requests"]
+    model, params = model_of(arch)
     eng = ServeEngine(model, params, rt, packed=spec["packed"], **kw)
     reqs = [Request(uid=r["uid"], prompt=np.asarray(r["prompt"], np.int32),
                     max_new_tokens=r["max_new"], tier=r["tier"],
@@ -66,7 +78,7 @@ for run in spec["runs"]:
             for r in run]
     out = eng.run(reqs)
     runs.append({str(k): v for k, v in out.items()})
-print(json.dumps({"checksum": h.hexdigest(), "runs": runs}))
+print(json.dumps({"checksums": checksums, "runs": runs}))
 """
 
 
@@ -92,6 +104,14 @@ def reference_runs(engine_kw, runs, *, packed=False):
     k]``; a run given as ``{"engine": kw, "requests": specs}`` overrides
     ``engine_kw`` with ``kw``.  Returns ([{uid: tokens} per run], weights
     checksum)."""
+    out, checksums = reference_arch_runs(engine_kw, runs, packed=packed)
+    return out, checksums["qwen3-8b"]
+
+
+def reference_arch_runs(engine_kw, runs, *, packed=False):
+    """As :func:`reference_runs`, where a run given as a dict may also name
+    its reduced ``"arch"`` (default qwen3-8b, ``PRNGKey(0)`` weights).
+    Returns ([{uid: tokens} per run], {arch: weights checksum})."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
     env["JAX_PLATFORMS"] = "cpu"
@@ -105,13 +125,13 @@ def reference_runs(engine_kw, runs, *, packed=False):
     assert proc.returncode == 0, proc.stderr[-4000:]
     ref = json.loads(proc.stdout.strip().splitlines()[-1])
     return ([{int(k): v for k, v in run.items()} for run in ref["runs"]],
-            ref["checksum"])
+            ref["checksums"])
 
 
-def reference_weights():
+def reference_weights(arch="qwen3-8b"):
     """(reference model, its PRNGKey(0) params, checksum, the params
-    converted into the port on the CPU)."""
-    jm = JLM(jreduced("qwen3-8b"))
+    converted into the port on the CPU) of reduced ``arch``."""
+    jm = JLM(jreduced(arch))
     jp = jm.init(jax.random.PRNGKey(0))
     return jm, jp, _checksum(jp), convert_params(
         jax.tree.map(np.asarray, jp), device="cpu")

@@ -22,6 +22,7 @@ from repro_torch.models.layers import Runtime
 from repro_torch.models.transformer import LM
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.request import Request
+from repro_torch.spec import SpecConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -109,7 +110,10 @@ def test_act_quant_kernels_take_views(gen, dtype, k):
     (5, 4100, 1000), (8, 64, 64), (40, 37, 33),
     # Split-K (narrow N, deep K), a ragged row tile with ragged K and N, and
     # one row against a wide weight.
-    (16, 4096, 1024), (17, 4100, 1000), (64, 12288, 4096), (1, 4096, 8192)])
+    (16, 4096, 1024), (17, 4100, 1000), (64, 12288, 4096), (1, 4096, 8192),
+    # mamba2-1.3b's in_proj (N = 8512: a column tail past the 128-column
+    # tile) in prefill and decode, and an expert of llama4 (K = 5120).
+    (64, 2048, 8512), (8, 2048, 8512), (8, 5120, 8192)])
 def test_gemm_kernels(gen, m, k, n):
     x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device="cuda",
                       generator=gen)
@@ -310,6 +314,58 @@ def test_grouped_kernels_at_decode_rows(gen, m, pmax):
     for k, n in ((4096, 1024), (512, 12288)):
         for layout in _layouts(m, pmax):
             _hold_grouped(*_grouped_case(gen, m, k, n, layout))
+
+
+@pytest.mark.parametrize("k,n", [(2048, 8512), (5120, 8192)])
+def test_kernels_2_and_4_at_ssm_and_expert_shapes(gen, k, n):
+    """Kernels 2 and 4 at mamba2-1.3b's in_proj (K = 2048, N = 8512) and at
+    a llama4 expert's gate/up (an [8, 1, 5120] capacity-1 buffer, most of
+    its rows zero), three tiers, against their plain versions."""
+    m = 8
+    x = (torch.randn((m, k), device="cuda", generator=gen) * 3).to(
+        torch.bfloat16)
+    x[1::2] = 0
+    x[2] = 0
+    qmax = torch.tensor((127.0, 7.0, 1.0), device="cuda").repeat(m)[:m, None]
+    perm = torch.randperm(m, device="cuda", generator=gen)
+    got = _counted("act_quant_rows",
+                   lambda: aq.act_quant_rows(x, qmax, perm=perm))
+    want = ref.act_quant_rows_ref(x, qmax, perm=perm)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    zero = (x[perm] == 0).all(dim=1)
+    assert not got[0][zero].any()
+    assert torch.equal(got[1][zero, 0], 1e-8 * (1.0 / qmax[zero, 0]))
+    _hold_grouped(*_grouped_case(gen, m, k, n, ((3, 4), (3, 2), (2, 1))))
+
+
+def test_reduced_jamba_serves_through_the_kernels(gen):
+    """The reduced hybrid (Mamba, attention, MLP and MoE layers): the
+    kernel streams equal the plain (``decomposed``) replay's, with greedy
+    speculation, and every serving kernel launched."""
+    model = LM(reduced_config("jamba-1.5-large-398b"))
+    params = model.init(gen, device="cuda")
+    tiers = {"8/8": (8, 8), "4/4": (4, 4), "2/2": (2, 2)}
+    reqs = _engine_requests(tiers)
+    outs = []
+    for backend in ("cuda", "decomposed"):
+        sched = uniform_schedule(tiers, backend=backend)
+        rt = Runtime(policy=sched.policy_for(), schedule=sched)
+        for spec in (False, True):
+            rs = [Request(uid=r.uid, prompt=r.prompt,
+                          max_new_tokens=r.max_new_tokens, tier=r.tier,
+                          spec=SpecConfig("2/2", 3) if spec and r.uid % 3
+                          else None) for r in reqs]
+            eng = ServeEngine(model, params, rt, max_batch=4, max_len=32)
+            _build.reset_launches()
+            outs.append(eng.run(rs))
+            if backend == "cuda":
+                used = ("act_quant", "act_quant_rows", "bitserial_matmul",
+                        "grouped_dequant_matmul")
+                assert all(_build.LAUNCHES[k] > 0 for k in used), \
+                    _build.LAUNCHES
+            else:
+                assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
+    assert outs[0] == outs[1] == outs[2] == outs[3]
 
 
 @pytest.mark.parametrize("offset", [0, 1])

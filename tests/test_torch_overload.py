@@ -492,6 +492,109 @@ def test_snapshot_equals_reference_slot_view(mode, tmp_path):
     _assert_snapshot_equal(jsub, back)
 
 
+# --------------------------------------------------- hybrid (SSM) snapshot
+HYBRID = "jamba-1.5-large-398b"
+
+
+def _hybrid_arenas():
+    """The reduced jamba arena (seven Mamba positions, one attention
+    position) in both packages, every tensor of every slot filled with the
+    same random values: the reference's (``LM.init_cache``, stacked over
+    periods) and the port's (one dict per period)."""
+    from repro.configs import reduced_config as jreduced
+    from repro.models.transformer import LM as JLM
+    jarena = JLM(jreduced(HYBRID)).init_cache(B, S)
+    arena = LM(reduced_config(HYBRID)).init_cache(B, S, device="cpu")
+    rng = np.random.default_rng(8)
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(jarena)
+    filled = []
+    for path, leaf in leaves:
+        pos, field = path[0].key, path[1].name
+        if np.issubdtype(np.asarray(leaf).dtype, np.integer):
+            arr = rng.integers(0, S, size=leaf.shape).astype(leaf.dtype)
+        else:
+            arr = np.asarray(jnp.asarray(rng.normal(size=leaf.shape),
+                                         leaf.dtype))
+        filled.append(jnp.asarray(arr))
+        for i, layer in enumerate(arena):
+            getattr(layer[pos], field).copy_(to_torch(arr[i], "cpu"))
+    return jax.tree_util.tree_unflatten(treedef, filled), arena
+
+
+def _assert_spill_tree_equal(jsub, tree):
+    """A spill tree (``slots.spill_tree``) against the reference's slot
+    view: the same keystr paths in the same order, bits and dtypes."""
+    want = [(jax.tree_util.keystr(p), leaf) for p, leaf in
+            jax.tree_util.tree_flatten_with_path(jsub)[0]]
+    got = ckpt._flatten(tree)
+    assert [p for p, _ in got] == [p for p, _ in want]
+    assert any(p.endswith(".conv") for p, _ in got)
+    for (p, w), (_, g) in zip(want, got):
+        (wb, wd), (gb, gd) = _bits(w), _bits(g)
+        assert wd == gd, p
+        np.testing.assert_array_equal(wb, gb, err_msg=p)
+
+
+def test_hybrid_snapshot_equals_reference_slot_view(tmp_path):
+    """Slot 1 of the hybrid arena: the port's snapshot (SSM conv windows
+    and states beside the KV lanes) is, leaf for leaf and under the
+    reference's names, the reference's ``slot_view``; written into slot 2
+    it gives the reference's ``slot_write``; and a spill file written by
+    either package restores bit-equal in the other."""
+    jarena, arena = _hybrid_arenas()
+    jsub = _jview(jarena, jnp.int32(1))
+    snap = tslots.slot_snapshot(arena, 1)
+    tree = tslots.spill_tree(snap)
+    _assert_spill_tree_equal(jsub, tree)
+    assert tslots.snapshot_nbytes(snap) == sum(
+        np.asarray(a).nbytes for a in jax.tree.leaves(jsub))
+    tslots.slot_restore(arena, snap, 2)
+    jarena = _jwrite(jarena, jsub, jnp.int32(2))
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jarena)[0]:
+        pos, field = path[0].key, path[1].name
+        got = np.stack([_tbits(getattr(layer[pos], field))
+                        for layer in arena])
+        np.testing.assert_array_equal(_jbits(leaf), got,
+                                      err_msg=jax.tree_util.keystr(path))
+    # The port's spill file, restored by the reference.
+    ckpt.save(str(tmp_path / "port"), 0, tree)
+    back, _ = jckpt.restore(str(tmp_path / "port"), 0,
+                            jax.tree.map(jnp.zeros_like, jsub))
+    _assert_spill_tree_equal(back, tree)
+    # The reference's spill file, restored by the port.
+    jckpt.save(str(tmp_path / "reference"), 0, jsub)
+    got, _ = ckpt.restore(str(tmp_path / "reference"), 0,
+                          tslots.spill_template(arena))
+    _assert_spill_tree_equal(jsub, got)
+    restored = tslots.unspill_tree(got)
+    for layer, want in zip(restored, snap, strict=True):
+        for pos, fields in want.items():
+            assert fields.keys() == layer[pos].keys()
+            for f, t in fields.items():
+                assert torch.equal(layer[pos][f], t), (pos, f)
+
+
+def test_preempt_resume_hybrid_equals_uninterrupted(tmp_path):
+    """Preempted hybrid slots (conv windows and SSD states in the
+    snapshot, one of them spilled) resume prefill-free in other slots to
+    the streams of an uninterrupted run."""
+    m = LM(reduced_config(HYBRID))
+    sched = uniform_schedule(TIERS, backend="cuda")
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    params = m.init(gen, device="cpu")
+    rt = Runtime(policy=sched.policy_for(), schedule=sched)
+    reqs = _requests(request_specs()[:6])
+    kw = dict(max_batch=3, max_len=64, decode_chunk=2, device="cpu")
+    base = ServeEngine(m, params, rt, **kw)
+    want = base.run([dataclasses.replace(r) for r in reqs])
+    eng = ServeEngine(m, base.params, rt, spill_dir=str(tmp_path), **kw)
+    got, done = _preempt_everything(eng, reqs)
+    assert got == want
+    assert len(done) == eng.stats.preemptions == eng.stats.resumes >= 3
+    assert eng.stats.spill_bytes > 0 and os.listdir(tmp_path) == []
+
+
 # ------------------------------------------------------- policy arithmetic
 POLICIES = [dict(preempt=True), dict(preempt=True, preempt_slack=3.0),
             dict(shed=True), dict(shed=True, auto_tier=True),

@@ -124,9 +124,9 @@ def _port_prefill(setup, packed, kv_bits):
 
 
 def _clone(caches):
-    return [{pos: KVCache(*[None if t is None else t.clone() for t in (
-        c.k, c.v, c.k_scale, c.v_scale, c.length)])
-        for pos, c in layer.items()} for layer in caches]
+    return [{pos: type(c)(*[None if t is None else t.clone()
+                            for t in (getattr(c, f) for f in c.FIELDS)])
+             for pos, c in layer.items()} for layer in caches]
 
 
 def _arena(caches):
@@ -216,18 +216,39 @@ def test_rollback_helpers_in_place():
     caches = m.init_cache(3, 8, kv_bits=8, device="cpu")
     for c in (c for layer in caches for c in layer.values()):
         c.length.copy_(torch.tensor([2, 3, 4], dtype=torch.int32))
-    saved = slots_lib.kv_lengths(caches)
+    keep = torch.tensor([True, False, True])
+    saved = slots_lib.pre_draft_state(caches, keep)
     for c in (c for layer in caches for c in layer.values()):
         c.length.add_(3)
-    keep = torch.tensor([True, False, True])
     slots_lib.merge_slots(caches, saved, keep)
     assert caches[1]["pos0"].length.tolist() == [2, 6, 4]
     slots_lib.truncate_kv_lengths(caches, torch.tensor([1, 9, 1]),
                                   torch.tensor([False, True, True]))
     assert caches[0]["pos0"].length.tolist() == [2, 0, 3]
-    assert slots_lib.select_verify_step(caches, torch.zeros(3)) is caches
-    with pytest.raises(NotImplementedError, match="item 8"):
-        slots_lib.select_verify_step([{"pos0": object()}], torch.zeros(1))
+    # KV caches are the identity under select_verify_step.
+    assert slots_lib.select_verify_step(caches, caches,
+                                        torch.zeros(3)) is caches
+    assert caches[0]["pos0"].length.tolist() == [2, 0, 3]
+    # SSM rows: merge_slots gives the saved rows back to the kept slots;
+    # select_verify_step writes each slot's step of the stacked states.
+    hm = LM(reduced_config("jamba-1.5-large-398b"))
+    hc = hm.init_cache(3, 8, device="cpu")
+    ssm = hc[0]["pos0"]
+    ssm.state.normal_()
+    before = ssm.state.clone()
+    saved = slots_lib.pre_draft_state(hc, keep)
+    ssm.state.add_(1.0)
+    slots_lib.merge_slots(hc, saved, keep)
+    assert torch.equal(ssm.state[0], before[0])
+    assert torch.equal(ssm.state[1], before[1] + 1.0)
+    assert torch.equal(ssm.state[2], before[2])
+    steps = [{pos: (type(c)(*(torch.stack([t + j for j in range(4)])
+                              for t in c.tensors()))
+                    if pos != "pos7" else c) for pos, c in layer.items()}
+             for layer in hc]
+    want = ssm.state + torch.tensor([3.0, 0.0, 2.0])[:, None, None, None]
+    slots_lib.select_verify_step(hc, steps, torch.tensor([3, 0, 2]))
+    assert torch.equal(ssm.state, want)
 
 
 # ------------------------------------------------------------ verify_step
@@ -298,7 +319,7 @@ def test_rejecting_round_arena(setup):
     caches, tok0 = _port_prefill(setup, False, kv_bits=8)
     start = _clone(caches)
     spec = torch.tensor(SPEC_MASK)
-    saved = slots_lib.kv_lengths(caches)
+    saved = slots_lib.pre_draft_state(caches, spec)
     tok, dtoks = tok0, []
     for _ in range(K):
         logits, _ = m.decode_step(params, rt_d, caches, tokens=tok[:, None])
@@ -419,6 +440,84 @@ def test_greedy_speculative_equals_plain(setup, plain_streams, draft_tier, k):
         assert not any(e.sampled for e in h.events)
         n_spec += sum(e.speculative for e in h.events)
     assert n_spec == st.spec_emitted
+
+
+def _ssm_setup(arch):
+    """A seeded reduced SSM / hybrid model, its superplane store and a
+    tiered runtime (the port alone: the rollback is the port's own)."""
+    m = LM(reduced_config(arch))
+    sched = uniform_schedule(TIERS, backend="cuda")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = m.init(gen, device="cpu", prepare=lambda tree, prefix:
+                    engine_mod.prepare_tree(tree, sched.prepare_policy(),
+                                            prefix=prefix, superplane=True))
+    return m, params, Runtime(policy=sched.policy_for(), schedule=sched)
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "mamba2-1.3b"])
+def test_greedy_speculative_hybrid_arch(arch):
+    """The verify window's rollback holds for SSM state (the twin of the
+    reference's test of the same name): spec slots' SSM rows go back to
+    their pre-draft copy, the verify replays from it and each slot keeps
+    its last accepted step, while plain slots keep their draft-phase
+    progress; greedy speculative streams equal plain ones, drafts both
+    accepted (an 8/8 request drafting at its own tier) and rejected (4/4
+    drafting at 2/2)."""
+    m, params, rt = _ssm_setup(arch)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 512, size=3 + 2 * i).astype(np.int32)
+               for i in range(5)]
+
+    def run(spec):
+        eng = ServeEngine(m, params, rt, device="cpu", max_batch=3,
+                          max_len=48, decode_chunk=2)
+        out = eng.run([Request(
+            uid=i, prompt=p, max_new_tokens=6 + i, tier=list(TIERS)[i % 3],
+            spec=SpecConfig("8/8" if i % 3 == 0 else "2/2", 3)
+            if spec and i % 3 != 2 else None)
+            for i, p in enumerate(prompts)])
+        return out, eng.stats
+
+    plain, _ = run(False)
+    spec, st = run(True)
+    assert spec == plain
+    assert st.spec_rounds > 0 and 0 < st.spec_accepted < st.spec_drafted
+
+
+def test_verify_positions_hybrid_bit_equal_sequential_decode():
+    """On the hybrid stack, every window position's logits equal the
+    sequential decode step's, bit for bit, and the verify's stacked SSM
+    states equal the states the decode steps leave; the arena's SSM rows
+    are not written by the verify."""
+    m, params, rt = _ssm_setup("jamba-1.5-large-398b")
+    caches = m.init_cache(B, MAX_LEN, device="cpu")
+    toks, lens = _prompts()
+    m.prefill(params, rt.for_tier("8/8"), caches,
+              tokens=torch.from_numpy(toks), seq_lengths=torch.from_numpy(lens))
+    rt_v = rt.for_groups(*(lambda g, p: (g, torch.from_numpy(
+        p.astype(np.int64))))(*_layout(SLOT_TIERS)))
+    window = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 512, size=(B, K + 1)).astype(np.int32))
+    active = torch.tensor(SPEC_MASK)
+    seq = _clone(caches)
+    before = _clone(caches)
+    vlogits, verified = m.verify_step(params, rt_v, caches, tokens=window,
+                                      active=active)
+    for j in range(K + 1):
+        lj, _ = m.decode_step(params, rt_v, seq, tokens=window[:, j:j + 1],
+                              active=active)
+        assert torch.equal(vlogits[active, j], lj[active, 0]), j
+        for layer, vlayer in zip(seq, verified):
+            for pos, c in layer.items():
+                if not isinstance(c, KVCache):
+                    for t, st in zip(c.tensors(), vlayer[pos].tensors()):
+                        assert torch.equal(st[j], t), (j, pos)
+    for layer, old in zip(caches, before):
+        for pos, c in layer.items():
+            if not isinstance(c, KVCache):
+                for t, o in zip(c.tensors(), old[pos].tensors()):
+                    assert torch.equal(t, o), pos
 
 
 # Requests that fill a 32-position arena (prompt + budget == max_len), so

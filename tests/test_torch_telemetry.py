@@ -295,6 +295,28 @@ def test_token_identity_mixed_tiers(setup, tmp_path):
     assert snap["profile"]["phases"]["prefill"]["calls"] == on.stats.prefills
 
 
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
+                                  "llama4-scout-17b-a16e"])
+def test_token_identity_hybrid_and_moe_archs(arch):
+    """Hybrid and MoE stacks: profiled telemetry changes no token, its
+    tier pricing reads the SSM and MoE layers' MACs, and the profiler
+    counts each layout's kernel launches (none on the CPU)."""
+    model = LM(reduced_config(arch))
+    gen = torch.Generator()
+    gen.manual_seed(2)
+    sched = uniform_schedule(TIERS, backend="cuda", kv_tiers=KV_TIERS)
+    rt = Runtime(policy=sched.policy_for(), schedule=sched)
+    kw = dict(max_batch=3, max_len=64, decode_chunk=4, device="cpu")
+    off = ServeEngine(model, model.init(gen, device="cpu"), rt, **kw)
+    want = off.run(_requests(5))
+    tele = Telemetry(profile=True)
+    on = ServeEngine(model, off.params, rt, telemetry=tele, **kw)
+    assert on.run(_requests(5)) == want
+    assert 0.0 < tele.registry.value("serve_modeled_cycle_utilization") <= 1.0
+    prof = tele.profiler.snapshot()
+    assert set(prof["decode_dispatches"].values()) == {0}
+
+
 def test_token_identity_speculative(setup):
     """Through speculative rounds: the same tokens, the spec counters
     mirrored and the acceptance gauge consistent."""
