@@ -146,6 +146,40 @@ Phases, in order (any failure exits non-zero and prints no result line):
             spilled hybrid snapshot restored; llama4 at one layer of full
             width.  Prints the store bytes, peak memory, step ms, tokens/s,
             launches, snapshot bytes and dispatch counts.
+4f. autoprec the paper's hardware model and the precision search.  (a)
+            The simulators on the card: ``pe_array_matmul`` (the 64x64
+            array, bit-serial through the split-path CSA tree),
+            ``bitserial_mac`` (Eq. (1)) and kernel 3 on the LSB-first
+            planes of ``decompose_weights`` must equal the exact int64
+            product at B=8, R=4096, C=1024 for (w, a) in {(8, 8), (6, 8),
+            (4, 4), (2, 2)}, signed and unsigned; prints the simulator's
+            ``PEArrayStats`` and ``peak_tops``, the modeled 28 nm array's
+            (not a speed of the card).  Kernels 1, 3 and 4 against their
+            plain versions at the path's shapes (M = 288 and 160 in groups
+            of 32, M = 32).  (b) The command line
+            ``repro_torch.launch.autoprec.main`` on full-width qwen3-8b
+            (36 layers, 8 names x widths 2, 4, 6, calibration 2 x 2 x 16
+            from seed 1, one-pass blocks of 8, ``--eval-top 6``,
+            ``--device cuda``): its profile is 6 forwards of 288 rows, each
+            145 launches of kernel 1 and 253 of kernel 4 (every probe runs
+            8-bit activations: one quantization config, so kernel 1, not
+            kernel 2); kernels 2 and 3 must not launch.  Prints the
+            seconds, launches and peak memory of its profile, search and
+            joint measurement (of up to six points spread over the front,
+            blocks of 4: 160 rows).  Its relaxation on the card must equal
+            the CPU's; the file it writes to the git-ignored
+            ``build/autoprec/`` must load to its schedule (the weights are
+            random, so only the mechanics are checked).  (c) On a store of
+            the same seed, batched must equal sequential (kernels 1 and 3
+            only) bit for bit on q_proj, down_proj and the head at widths 2
+            and 4.  (f) The command line's schedule (tiers auto and base)
+            serves phase 3's nine requests from memory and from the loaded
+            file on that store, with no preparation: equal streams; then
+            ``repro_torch.launch.serve.main --schedule-file`` serves the
+            file and its streams must equal that store's run of the same
+            requests.  At 4 layers, (d) the ``cuda`` profile and joint
+            divergences must equal the plain ``decomposed`` ones bit for
+            bit, and (f) the served streams the plain replay's.
 5. fixed    the quickstart form, --w-bits 4 with the int8 KV cache and
             then the int4 one (--kv-bits 8, 4; LSB-first planes), at full
             width with the depth cut to 4 layers; for each, the ``cuda``
@@ -164,7 +198,10 @@ Phases, in order (any failure exits non-zero and prints no result line):
             once per weight MAC, x times the weight the planes compose,
             whatever the plane count), its plain version's time and,
             where one PyTorch call computes the same function, that call's;
-            and an empty kernel's time, the launch floor.
+            and an empty kernel's time, the launch floor.  Phase 4f's
+            shapes: kernel 4 at M = 288 (nine groups of 32, one probe
+            group at 1, 2 or 3 planes; K x N 4096 x 12288 and the head)
+            and M = 160, kernels 1 and 2 at M = 288, kernel 3 at M = 32.
 
 The script takes no arguments.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the one before it the card's name and
@@ -395,7 +432,8 @@ def _grouped_args(layout, n: int, gen):
     mult = torch.from_numpy(decompose.prefix_multipliers(layout)).cuda()
     xs = torch.rand((m, 1), device="cuda", generator=gen) * 1e-2 + 1e-4
     base = torch.rand((1, n), device="cuda", generator=gen) * 1e-2 + 1e-5
-    ws = torch.cat([base * f for f in (1.0, 16.0, 64.0)[:len(layout)]])
+    ws = torch.cat([base * (1.0, 16.0, 64.0)[g % 3]
+                    for g in range(len(layout))])
     rg = torch.from_numpy(np.repeat(np.arange(len(layout), dtype=np.int32),
                                     [r for r, _ in layout])).cuda()
     return mult, xs, ws.contiguous(), rg
@@ -2133,6 +2171,456 @@ def phase_archs(card: str) -> dict:
 
 
 
+# --------------------------------------------------------------- phase 4f
+# The simulators' check on the card: (w_bits, a_bits), each with weights
+# and activations signed and then unsigned, at B x R x C.
+SIM_BITS = ((8, 8), (6, 8), (4, 4), (2, 2))
+SIM_SHAPE = (8, 4096, 1024)
+# The profile: calibration 2 x 2 x 16 from seed 1 (the CLI's defaults),
+# widths 2, 4, 6, one-pass blocks of 8 probes; (c) probes these layers.
+PROFILE_CALIB = dict(batches=2, batch=2, seq=16, seed=1)
+PROFILE_CHOICES = (2, 4, 6)
+PROFILE_NAMES = ("layers.pos0.attn.q_proj", "layers.pos0.mlp.down_proj",
+                 "lm_head")
+# Every probe and both serving tiers run 8-bit activations, so a grouped
+# projection quantizes its input with kernel 1 (one config: the shared
+# path of ops.quantize_activations_grouped) and runs kernel 4; kernel 2
+# takes mixed activation widths only.
+AUTOPREC_BATCHED = ("act_quant", "grouped_dequant_matmul")
+AUTOPREC_SEQUENTIAL = ("act_quant", "bitserial_matmul")
+AUTOPREC_SERVE = ("act_quant", "bitserial_matmul", "grouped_dequant_matmul")
+# Launches of one full-width qwen3-8b forward (as a prefill: 145 and 253).
+FORWARD_ACT_QUANTS, FORWARD_GEMMS = 145, 253
+
+
+def _kernel3_product(a, w, w_bits: int, w_signed: bool):
+    """``a @ w`` through kernel 3 on the LSB-first planes of
+    ``decompose_weights`` with their shifts.  Kernel 3 reads int8
+    activations: an unsigned 8-bit ``a`` splits into lo + 128 * hi (lo in
+    [0, 127], hi in {0, 1}), two launches."""
+    import torch
+    from repro_torch.core import decompose
+    from repro_torch.kernels import bitserial_matmul as bsm
+    planes = decompose.decompose_weights(w, w_bits,
+                                         signed=w_signed).contiguous()
+    shifts = decompose.plane_shifts(w_bits, w_signed)
+    if int(a.max()) <= 127:
+        return bsm.bitserial_matmul(a.to(torch.int8).contiguous(), planes,
+                                    shifts)
+    lo = (a & 127).to(torch.int8).contiguous()
+    hi = (a >> 7).to(torch.int8).contiguous()
+    return (bsm.bitserial_matmul(lo, planes, shifts)
+            + (bsm.bitserial_matmul(hi, planes, shifts) << 7))
+
+
+def _simulators() -> list:
+    """4f (a): the array simulator, Eq. (1) and kernel 3 against the exact
+    int64 product on the same operands."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import bitserial, decompose, pe_array
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    b, r, c = SIM_SHAPE
+    cfg = pe_array.PEArrayConfig()
+    rows = []
+    log(f"[autoprec-sim] B={b} R={r} C={c}; stats and TOPS are the paper's "
+        f"modeled 28 nm 64x64 array at {cfg.clk_mhz:.0f} MHz (hwmodel), "
+        "not a speed of this card")
+    for w_bits, a_bits in SIM_BITS:
+        for signed in (True, False):
+            alo, ahi = decompose.weight_range(a_bits, signed)
+            wlo, whi = decompose.weight_range(w_bits, signed)
+            a = torch.randint(alo, ahi + 1, (b, r), dtype=torch.int32,
+                              device="cuda", generator=gen)
+            w = torch.randint(wlo, whi + 1, (r, c), dtype=torch.int32,
+                              device="cuda", generator=gen)
+            exact = a.cpu().to(torch.int64) @ w.cpu().to(torch.int64)
+            sync()
+            t0 = time.perf_counter()
+            sim, stats = pe_array.pe_array_matmul(
+                a, w, w_bits=w_bits, a_bits=a_bits, a_signed=signed,
+                w_signed=signed)
+            sync()
+            sim_s = time.perf_counter() - t0
+            mac = bitserial.bitserial_mac(a, w, a_bits, w_bits,
+                                          a_signed=signed, w_signed=signed)
+            k3 = _kernel3_product(a, w, w_bits, signed)
+            for label, got in (("pe_array_matmul", sim),
+                               ("bitserial_mac", mac), ("kernel 3", k3)):
+                if got.dtype != torch.int32 or not torch.equal(
+                        got.cpu().to(torch.int64), exact):
+                    raise AssertionError(
+                        f"autoprec-sim w{w_bits} a{a_bits} signed={signed}: "
+                        f"{label} differs from the exact int64 product")
+            row = {"w_bits": w_bits, "a_bits": a_bits, "signed": signed,
+                   "stats": dataclasses.asdict(stats),
+                   "modeled_macs_per_cycle": stats.macs_per_cycle,
+                   "modeled_tops": stats.tops(cfg.clk_mhz),
+                   "modeled_peak_tops": pe_array.peak_tops(cfg, w_bits,
+                                                           a_bits),
+                   "simulator_s_on_card": sim_s}
+            log("[autoprec-sim] equal to the exact product (simulator, "
+                "Eq. (1), kernel 3): " + json.dumps(row))
+            rows.append(row)
+    return rows
+
+
+def _autoprec_parity() -> None:
+    """4f: kernels 1, 3 and 4 against their plain versions at the path's
+    new shapes (tolerance 0): kernel 4 at the profiler's M = 288 (nine
+    groups of 32, one probe group at 1, 2 or 3 planes) and the joint
+    measurement's M = 160, kernel 1 at M = 288, kernel 3 at M = 32."""
+    import torch
+    from repro_torch.core import decompose
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    checked = 0
+
+    def same(label, got, want):
+        nonlocal checked
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"autoprec-parity {label}: kernel "
+                                     "differs from its plain version")
+        checked += 1
+
+    for k in (4096, 12288):
+        xb = torch.randn((288, k), device="cuda", generator=gen
+                         ).to(torch.bfloat16)
+        same(f"act_quant M=288 K={k}", aq.act_quant(xb),
+             ref.act_quant_ref(xb))
+    for m, k, n in ((288, 4096, 12288), (288, 4096, 152064),
+                    (160, 4096, 12288)):
+        x, planes = _inputs(m, k, n, gen)
+        for p in (1, 2, 3):
+            layout = tuple((32, p if g == 1 else 4) for g in range(m // 32))
+            mult, xs, ws, rg = _grouped_args(layout, n, gen)
+            same(f"grouped_dequant_matmul M={m} K={k} N={n} {layout}",
+                 gmm.grouped_dequant_matmul(x, planes, mult, xs, ws, rg),
+                 ref.grouped_dequant_matmul_ref(x, planes, mult, xs, ws, rg))
+        if m == 288:
+            for p in (4, 1):
+                sh = decompose.prefix_shifts(p)
+                same(f"bitserial_matmul M=32 K={k} N={n} P={p}",
+                     bsm.bitserial_matmul(x[:32], planes[:p], sh),
+                     ref.bitserial_matmul_ref(x[:32], planes[:p], sh))
+        del x, planes
+        torch.cuda.empty_cache()
+    log(f"[autoprec-parity] {checked} kernel calls at the path's shapes "
+        "equal their plain versions")
+
+
+def _profiled(label: str, fn, used, unused) -> tuple:
+    """``fn()`` with the launches of exactly this run, its seconds and
+    peak memory."""
+    import torch
+    from repro_torch.kernels import _build
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    res = {"s": time.perf_counter() - t0, "launches": dict(_build.LAUNCHES),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    _check_launches(label, res["launches"], used=used, unused=unused)
+    log(f"[{label}] " + json.dumps(res, sort_keys=True))
+    return out, res
+
+
+def _same_profile(label: str, got, want) -> None:
+    if got.kl != want.kl or got.mse != want.mse:
+        raise AssertionError(f"{label}: profiles differ:\n{got.kl}\n"
+                             f"{want.kl}")
+    log(f"[{label}] kl and mse equal bit for bit")
+
+
+def _staged(module, names, stages: dict):
+    """Wrap the functions ``names`` of ``module`` (a command line's own
+    references) so that each call records its seconds, launches (a delta
+    of the counts, which it leaves running) and peak memory under
+    ``stages[name]``; returns the undo."""
+    import torch
+    from repro_torch.kernels import _build
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.reset_peak_memory_stats()
+            sync()
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            stages[name] = {
+                "s": time.perf_counter() - t0,
+                "launches": {k: v - before[k]
+                             for k, v in _build.LAUNCHES.items()},
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            return out
+        return run
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+
+    def undo():
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+    return undo
+
+
+def _check_forwards(label: str, launches: dict, forwards: int) -> None:
+    """``forwards`` full-width forwards' launches of kernels 1 and 4."""
+    want = (forwards * FORWARD_ACT_QUANTS, forwards * FORWARD_GEMMS)
+    if (launches["act_quant"], launches["grouped_dequant_matmul"]) != want:
+        raise AssertionError(f"{label}: {launches} for {forwards} forwards")
+
+
+def _serve_cli_requests(n: int, vocab: int, max_new: int, tiers, seed: int):
+    """The stream ``launch/serve.py`` submits without ``--slo``: prompts of
+    4 + i % 5 tokens from ``seed``, budgets 1 + max_new * (i % 4) // 3,
+    tiers round-robin."""
+    import numpy as np
+    from repro_torch.serve.request import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(0, vocab, size=4 + i % 5
+                                               ).astype(np.int32),
+                    max_new_tokens=1 + (max_new * (i % 4)) // 3,
+                    tier=tiers[i % len(tiers)])
+            for i in range(n)]
+
+
+def phase_autoprec(card: str) -> dict:
+    """Phase 4f: the array simulators on the card, then the hardware-aware
+    precision search on full-width qwen3-8b through its command line, the
+    schedule file it writes, and serving that file through the serving
+    command line."""
+    import dataclasses
+
+    import torch
+    from repro_torch.autoprec import (load_schedule, measure_divergence,
+                                      profile_sensitivity,
+                                      random_calibration, relaxed_search,
+                                      result_to_meta, schedule_from_results)
+    from repro_torch.core.policy import uniform_schedule
+    from repro_torch.kernels import _build
+    from repro_torch.launch import autoprec as autoprec_cli
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve import engine as engine_mod
+    out: dict = {"card": card, "simulators": _simulators()}
+    _autoprec_parity()
+    launches: dict = {}
+
+    def add(res):
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    all_kernels = tuple(KERNELS)
+    off_batched = [k for k in all_kernels if k not in AUTOPREC_BATCHED]
+    path = ROOT / "build" / "autoprec" / "schedule.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    # (b), (e) The command line at full width: profile (8 names x 3 widths
+    # = 24 probes, 3 one-pass blocks x 2 calibration batches = 6 forwards
+    # of (8 + 1) * 2 * 16 = 288 rows), search, joint measurement of the
+    # spread front (blocks of 4: 5 * 2 * 16 = 160 rows), the file.
+    argv = ["--arch", "qwen3-8b",
+            "--choices", *map(str, PROFILE_CHOICES),
+            "--calib-batches", str(PROFILE_CALIB["batches"]),
+            "--calib-batch", str(PROFILE_CALIB["batch"]),
+            "--calib-len", str(PROFILE_CALIB["seq"]),
+            "--seed", "0", "--block", "8",
+            "--eval-top", "6", "--backend", "cuda", "--device", "cuda",
+            "--out", str(path)]
+    log("[autoprec-cli] python -m repro_torch.launch.autoprec "
+        + " ".join(argv))
+    stages: dict = {}
+    undo = _staged(autoprec_cli, ("profile_sensitivity", "search",
+                                  "measure_divergence"), stages)
+    sync()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        got = autoprec_cli.main(argv)
+    finally:
+        undo()
+    sync()
+    cli = {"s": time.perf_counter() - t0, "launches": dict(_build.LAUNCHES),
+           "stages": stages}
+    log("[autoprec-cli] " + json.dumps(cli, sort_keys=True))
+    _check_launches("autoprec-cli", cli["launches"], AUTOPREC_BATCHED,
+                    off_batched)
+    add(cli)
+    prof, cost = got["profile"], got["cost"]
+    front, selected, schedule = got["front"], got["selected"], \
+        got["schedule"]
+    pts = [r for r in front if r.measured_divergence is not None]
+    n_fwd = -(-len(prof.layers) * len(PROFILE_CHOICES) // 8) \
+        * PROFILE_CALIB["batches"]
+    n_meas = -(-len(pts) // 4) * PROFILE_CALIB["batches"]
+    _check_forwards("autoprec-profile", stages["profile_sensitivity"][
+        "launches"], n_fwd)
+    _check_forwards("autoprec-measure", stages["measure_divergence"][
+        "launches"], n_meas)
+    if any(stages["search"]["launches"].values()):
+        raise AssertionError("autoprec-search launched kernels")
+    values = [v for t in (prof.kl, prof.mse) for n in t for v in t[n].values()]
+    if not all(v >= 0.0 and v == v and v != float("inf") for v in values):
+        raise AssertionError("autoprec-profile: a divergence is negative "
+                             "or not finite")
+    log("[autoprec-profile] kl " + json.dumps(prof.kl))
+    relaxed = {dev: [dataclasses.asdict(r) for r in relaxed_search(
+        prof.table, cost, choices=PROFILE_CHOICES, device=dev)]
+        for dev in ("cuda", "cpu")}
+    if relaxed["cuda"] != relaxed["cpu"]:
+        raise AssertionError("autoprec-search: relaxed_search on the card "
+                             "differs from the CPU's")
+    loaded = load_schedule(str(path))
+    if loaded != schedule or list(loaded.tier_names) != ["auto", "base"]:
+        raise AssertionError("autoprec: the loaded schedule differs from the "
+                             "command line's")
+    log("[autoprec-search] " + json.dumps({
+        "front": len(front), "relaxed_points": len(relaxed["cuda"]),
+        "measured": [result_to_meta(r) for r in pts],
+        "uniform8_cycles_per_token": cost.uniform_cycles(8),
+        "selected": result_to_meta(selected)}))
+    out["profile"] = {**stages["profile_sensitivity"], "forwards": n_fwd,
+                      "rows": 9 * 2 * 16, "kl": prof.kl}
+    out["search"] = {"search_s": stages["search"]["s"],
+                     "measure": {**stages["measure_divergence"],
+                                 "forwards": n_meas},
+                     "cli_s": cli["s"], "selected": result_to_meta(selected),
+                     "uniform8_cycles_per_token": cost.uniform_cycles(8)}
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) Batched against sequential, bit for bit, on a store of the
+    # command lines' seed (their calibration is from seed + 1).
+    prep = uniform_schedule(TIERS, backend="cuda").prepare_policy()
+    cfg, model, params = _build_model(None, prep, superplane=True, seed=0)
+    calib = random_calibration(cfg, **PROFILE_CALIB)
+    kw = dict(calib=calib, choices=(2, 4), layers=PROFILE_NAMES,
+              backend="cuda")
+    p_b, res_b = _profiled(
+        "autoprec-batched", lambda: profile_sensitivity(
+            model, params, batched=True, block=8, **kw), AUTOPREC_BATCHED,
+        off_batched)
+    p_s, res_s = _profiled(
+        "autoprec-sequential", lambda: profile_sensitivity(
+            model, params, batched=False, **kw), AUTOPREC_SEQUENTIAL,
+        [k for k in all_kernels if k not in AUTOPREC_SEQUENTIAL])
+    _same_profile("autoprec-batched-vs-sequential", p_b, p_s)
+    add(res_b)
+    add(res_s)
+    out["batched_s"], out["sequential_s"] = res_b["s"], res_s["s"]
+    # (f) Serve it: from memory, then from the loaded file, one store; then
+    # the serving command line's requests on the same store.
+    reqs = _requests(9, cfg.vocab_size, 16, list(schedule.tier_names),
+                     seed=1)
+    cli_reqs = _serve_cli_requests(9, cfg.vocab_size, 16,
+                                   list(loaded.tier_names), seed=0)
+    calls = engine_mod.PREPARE_CALLS
+    runs = {}
+    for label, sched, rs in (("memory", schedule, reqs),
+                             ("file", loaded, reqs),
+                             ("cli-requests", loaded, cli_reqs)):
+        eng = engine_mod.ServeEngine(model, params, Runtime(
+            policy=sched.policy_for(), schedule=sched), **MIXED_KW)
+        runs[label] = _serve(eng, rs, f"autoprec-serve-{label}")
+        _check_streams(f"autoprec-serve-{label}", runs[label]["tokens"],
+                       rs, cfg.padded_vocab)
+        _check_launches(f"autoprec-serve-{label}",
+                        runs[label]["stats"]["launches"], AUTOPREC_SERVE,
+                        ("packed_bitserial_matmul", "grouped_matmul"))
+        if eng.stats.mixed_tier_chunks == 0:
+            raise AssertionError(f"autoprec-serve-{label}: no decode chunk "
+                                 "mixed tiers")
+        add(runs[label]["stats"])
+        del eng
+    if engine_mod.PREPARE_CALLS != calls:
+        raise AssertionError("autoprec-serve: prepare_params ran")
+    _check_same("autoprec-serve-file", runs["file"]["tokens"],
+                runs["memory"]["tokens"], "the in-memory schedule's")
+    out["serve"] = runs["memory"]["stats"]
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_argv = ["--arch", "qwen3-8b", "--schedule-file", str(path),
+                  "--requests", str(len(cli_reqs)), "--max-new", "16",
+                  "--max-batch", str(MIXED_KW["max_batch"]),
+                  "--max-len", str(MIXED_KW["max_len"]),
+                  "--decode-chunk", str(MIXED_KW["decode_chunk"]),
+                  "--seed", "0", "--device", "cuda"]
+    log("[autoprec-serve-cli] python -m repro_torch.launch.serve "
+        + " ".join(serve_argv))
+    sync()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    served = serve_cli.main(serve_argv)
+    sync()
+    serve_res = {"s": time.perf_counter() - t0,
+                 "launches": dict(_build.LAUNCHES)}
+    log("[autoprec-serve-cli] " + json.dumps(serve_res, sort_keys=True))
+    _check_launches("autoprec-serve-cli", serve_res["launches"],
+                    AUTOPREC_SERVE,
+                    ("packed_bitserial_matmul", "grouped_matmul"))
+    if engine_mod.PREPARE_CALLS != calls:
+        raise AssertionError("autoprec-serve-cli: prepare_params ran")
+    _check_same("autoprec-serve-cli", served,
+                runs["cli-requests"]["tokens"],
+                "the same requests' on the phase's store")
+    add(serve_res)
+    out["serve_cli"] = serve_res
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) and (f) at 4 layers against the plain replay.
+    cfg4, model4, params4 = _build_model(4, prep, superplane=True, seed=0)
+    log("[autoprec-4] depth cut: 4 of qwen3-8b's 36 layers")
+    p_cuda, res4 = _profiled(
+        "autoprec-4-cuda", lambda: profile_sensitivity(
+            model4, params4, calib=calib, choices=PROFILE_CHOICES,
+            backend="cuda"), AUTOPREC_BATCHED, off_batched)
+    add(res4)
+    p_plain, _ = _profiled(
+        "autoprec-4-plain", lambda: profile_sensitivity(
+            model4, params4, calib=calib, choices=PROFILE_CHOICES,
+            backend="decomposed"), (), all_kernels)
+    _same_profile("autoprec-4-cuda-vs-plain", p_cuda, p_plain)
+    joint = {f"pt{i}": r.assignment for i, r in enumerate(pts)}
+    m_cuda, res4m = _profiled(
+        "autoprec-4-measure", lambda: measure_divergence(
+            model4, params4, joint, calib=calib, backend="cuda", block=4),
+        AUTOPREC_BATCHED, off_batched)
+    add(res4m)
+    m_plain, _ = _profiled(
+        "autoprec-4-measure-plain", lambda: measure_divergence(
+            model4, params4, joint, calib=calib, backend="decomposed",
+            block=4), (), all_kernels)
+    if m_cuda != m_plain:
+        raise AssertionError(f"autoprec-4-measure: {m_cuda} != {m_plain}")
+    log("[autoprec-4-measure] joint divergences equal the plain replay's: "
+        + json.dumps(m_cuda))
+    plain = schedule_from_results([selected], tier_names=["auto"],
+                                  backend="decomposed")
+    cuda4 = _serve(engine_mod.ServeEngine(model4, params4, Runtime(
+        policy=schedule.policy_for(), schedule=schedule), **MIXED_KW),
+        reqs, "autoprec-4-serve")
+    add(cuda4["stats"])
+    _check_plain("autoprec-4-serve", _serve(engine_mod.ServeEngine(
+        model4, params4, Runtime(policy=plain.policy_for(), schedule=plain),
+        **MIXED_KW), reqs, "autoprec-4-serve-plain"), cuda4)
+    out["launches"] = launches
+    log("[autoprec] launches " + json.dumps(launches))
+    return out
+
+
 def phase_fixed() -> dict:
     from repro_torch.core.policy import uniform_policy
     from repro_torch.models.layers import Runtime
@@ -2454,6 +2942,66 @@ def phase_times() -> dict:
                         2.0 * m * k * n)
             del x, planes, packed, lib
             torch.cuda.empty_cache()
+    # Phase 4f's shapes.  The one-pass profiler: (8 + 1) groups of 2 x 16
+    # rows (M = 288), the base group and seven probes at Pmax 4 and the
+    # probed layer's group at 1, 2 or 3 planes; kernel 1 quantizes the 288
+    # rows (8-bit activations everywhere: one config), and kernel 2 at the
+    # same rows (perm expanded over the 16 positions) stands beside it.
+    # The joint measurement: 5 groups of 32 (M = 160).  The sequential
+    # profiler: kernel 3 at M = 32 (2 x 16).
+    for k in (4096, 12288):
+        m = 288
+        xb = torch.randn((m, k), device="cuda", generator=gen
+                         ).to(torch.bfloat16)
+        perm = (torch.randperm(m // 16, device="cuda", generator=gen)
+                .reshape(-1, 1) * 16 + torch.arange(16, device="cuda")
+                ).reshape(-1)
+        qmax = torch.full((m, 1), 127.0, device="cuda")
+        out = m * k + m * 4
+        row("act_quant", f"M={m} K={k} bits=8 bf16 profile",
+            lambda: aq.act_quant(xb), lambda: ref.act_quant_ref(xb),
+            2 * m * k + out, 0)
+        row("act_quant_rows", f"M={m} K={k} bf16 perm profile",
+            lambda: aq.act_quant_rows(xb, qmax, perm=perm),
+            lambda: ref.act_quant_rows_ref(xb, qmax, perm=perm),
+            2 * m * k + out + m * 12, 0)
+    joint = ((32, 4), (32, 1), (32, 2), (32, 3), (32, 4))
+    for m, k, n, probe in ((288, 4096, 12288, (1, 2, 3)),
+                           (288, 4096, 152064, (1,)),
+                           (160, 4096, 12288, (None,))):
+        x, planes = _inputs(m, k, n, gen)
+        for p in probe:
+            layout = joint if p is None else tuple(
+                (32, p if g == 1 else 4) for g in range(9))
+            mult, xs, ws, rg = _grouped_args(layout, n, gen)
+            scales = m * 16 + m * 4 + len(layout) * n * 4 + m * 4
+            row("grouped_dequant_matmul",
+                f"M={m} K={k} N={n} groups {len(layout)}x32 "
+                f"Pmax {[q for _, q in layout]}",
+                lambda: gmm.grouped_dequant_matmul(x, planes, mult, xs, ws,
+                                                   rg),
+                lambda: ref.grouped_dequant_matmul_ref(x, planes, mult, xs,
+                                                       ws, rg),
+                m * k + planes.numel() + scales + 2 * m * n,
+                2.0 * m * k * n)
+        del x, planes
+        torch.cuda.empty_cache()
+    for k, n in ((4096, 12288), (4096, 152064)):
+        m = 32
+        x, planes = _inputs(m, k, n, gen)
+        w8 = decompose.recompose_weights(planes.flip(0), 8).to(
+            torch.int8).contiguous()
+        lib = (lambda x=x, w8=w8: torch._int_mm(x, w8))
+        for p in (4, 1):
+            pre = planes[:p]
+            sh = decompose.prefix_shifts(p)
+            row("bitserial_matmul", f"M={m} K={k} N={n} P={p} sequential",
+                lambda pre=pre, sh=sh: bsm.bitserial_matmul(x, pre, sh),
+                lambda pre=pre, sh=sh: ref.bitserial_matmul_ref(x, pre, sh),
+                m * k + p * k * n + 4 * m * n, 2.0 * m * k * n,
+                lib if p == 4 else None)
+        del x, planes, w8, lib
+        torch.cuda.empty_cache()
     return {"rows": rows, "launch_floor_ms": floor}
 
 
@@ -2497,6 +3045,8 @@ def main() -> int:
                        ("overload", lambda: phase_overload(
                            out["tiers"], out["build"]["card"])),
                        ("archs", lambda: phase_archs(out["build"]["card"])),
+                       ("autoprec", lambda: phase_autoprec(
+                           out["build"]["card"])),
                        ("fixed", phase_fixed), ("times", phase_times)):
         t = time.perf_counter()
         out[phase] = run()
@@ -2522,7 +3072,7 @@ def main() -> int:
             "launches_by_path": {path: out[path]["launches"][name]
                                  for path in ("parity", "mixed", "packed",
                                               "spec", "tiers", "overload",
-                                              "archs")}}
+                                              "archs", "autoprec")}}
         if name.startswith("act_quant"):
             entry["launch_floor_ms"] = out["times"]["launch_floor_ms"]
         if name == "grouped_dequant_matmul":   # its packed mode, on "packed"

@@ -74,6 +74,14 @@ class PrecisionPolicy:
             rules={k: v.with_backend(backend) for k, v in self.rules.items()},
             default=self.default.with_backend(backend))
 
+    def average_bits(self, layer_names, param_counts=None) -> float:
+        """Parameter-weighted mean weight bitwidth over ``layer_names``."""
+        names = list(layer_names)
+        counts = param_counts or [1] * len(names)
+        tot = sum(counts)
+        return sum(self.lookup(n).w_bits * c
+                   for n, c in zip(names, counts)) / tot
+
 
 def uniform_policy(w_bits: int, a_bits: int, backend: str = "fake_quant",
                    a_signed: bool = True) -> PrecisionPolicy:
@@ -208,6 +216,20 @@ class PrecisionSchedule:
         return PrecisionPolicy(default=dataclasses.replace(
             default, w_bits=8, a_bits=8))
 
+    # -------------------------------------------------------- persistence
+    def to_json_dict(self) -> Dict:
+        """JSON-able dict form (exact round trip through
+        :meth:`from_json_dict`; the format is
+        :mod:`repro_torch.autoprec.schedule_io`'s)."""
+        from repro_torch.autoprec import schedule_io
+        return schedule_io.schedule_to_dict(self)
+
+    @classmethod
+    def from_json_dict(cls, d: Dict) -> "PrecisionSchedule":
+        """Rebuild (and re-validate) a schedule from its dict form."""
+        from repro_torch.autoprec import schedule_io
+        return schedule_io.schedule_from_dict(d)
+
 
 def uniform_schedule(tiers: Dict[str, tuple],
                      backend: str = "decomposed",
@@ -219,3 +241,41 @@ def uniform_schedule(tiers: Dict[str, tuple],
         name: LayerPrecision(w_bits=w, a_bits=a, backend=backend,
                              a_signed=a_signed)
         for name, (w, a) in tiers.items()}, kv_tiers=kv_tiers)
+
+
+def allocate_bits_by_sensitivity(sensitivities: Dict[str, float],
+                                 param_counts: Dict[str, int],
+                                 avg_bits: float,
+                                 choices=(2, 4, 6, 8),
+                                 a_bits: int = 8,
+                                 backend: str = "fake_quant") -> PrecisionPolicy:
+    """Greedy sensitivity-based bit allocation (HAWQ-flavoured).
+
+    Start everything at min(choices); repeatedly grant one step of extra
+    precision to the layer with the best marginal sensitivity reduction per
+    budget unit until the parameter-weighted average bitwidth budget is
+    spent.  A scalar sensitivity models a symmetric quantizer whose error
+    halves per extra bit (``sens * 2^-bits``).  A thin wrapper over
+    :func:`repro_torch.autoprec.search.greedy_trajectory`, as the
+    reference's is; ``choices`` defaults to the even widths the superplane
+    path serves, odd widths stay available for fake-quant policies."""
+    from repro_torch.autoprec.search import greedy_trajectory
+
+    names = sorted(sensitivities)
+    missing = [n for n in names if n not in param_counts]
+    if missing:
+        raise ValueError(f"param_counts misses layers {missing}")
+    # Synthetic (layer, width) divergence table from the scalar prior; the
+    # budget is the parameter-weighted total-bits cap.
+    sens = {n: {b: sensitivities[n] * 2.0 ** (-b) for b in choices}
+            for n in names}
+    layer_cost = {n: {b: float(b * param_counts[n]) for b in choices}
+                  for n in names}
+    budget = avg_bits * sum(param_counts[n] for n in names)
+    bits = greedy_trajectory(names, sens, layer_cost, choices,
+                             budget=budget)[-1]
+    rules = {n: LayerPrecision(w_bits=bits[n], a_bits=a_bits, backend=backend)
+             for n in names}
+    return PrecisionPolicy(rules=rules,
+                           default=LayerPrecision(a_bits=a_bits,
+                                                  backend=backend))

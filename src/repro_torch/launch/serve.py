@@ -64,6 +64,13 @@ or JSON for a ``.json`` path), ``--trace-out`` a Chrome trace, and
         --tiers 8/8 4/4 2/2 --slo --preempt --shed --requests 12 \
         --metrics --device cpu
 
+A schedule searched by ``repro_torch.launch.autoprec`` (or the JAX
+package's) serves with ``--schedule-file``: its tiers (``auto`` and
+``base``), per-layer rules and kv_tiers come from the file:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --arch granite-3-8b --schedule-file schedule.json --device cpu
+
 The backend defaults to ``cuda`` (the hand-written kernels) and the device
 to ``cuda``; ``--device cpu`` runs the kernels' plain versions.  Weights
 are random from ``--seed``, made and prepared layer by layer on the device.
@@ -77,6 +84,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.autoprec import load_schedule
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.policy import uniform_policy, uniform_schedule
 from repro_torch.device import resolve_device
@@ -106,6 +114,12 @@ def main(argv=None):
                     help="runtime precision tiers, e.g. --tiers 8/8 4/4 2/2: "
                          "ONE superplane preload, requests round-robin over "
                          "the tiers (even w only; overrides --w/a-bits)")
+    ap.add_argument("--schedule-file", default=None, metavar="SCHEDULE.json",
+                    help="serve a searched PrecisionSchedule written by "
+                         "repro_torch.launch.autoprec (or the JAX package's "
+                         "autoprec): tiers, per-layer rules and kv_tiers "
+                         "come from the file; requests round-robin over its "
+                         "tiers")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
@@ -177,7 +191,31 @@ def main(argv=None):
 
     # Flag checks before any model is built.
     kv_tiers = None
-    if args.tiers:
+    schedule = None
+    if args.schedule_file:
+        if args.tiers:
+            ap.error("--schedule-file carries its own tiers; drop --tiers")
+        if args.kv_tiers:
+            ap.error("--schedule-file carries its own kv_tiers; drop "
+                     "--kv-tiers")
+        if args.backend == "dense":
+            ap.error("--schedule-file needs an integer backend")
+        if args.baseline:
+            ap.error("--baseline has no per-request tier switching; drop "
+                     "--schedule-file")
+        schedule = load_schedule(args.schedule_file)
+        if schedule.kv_tiers is not None and args.kv_bits is not None:
+            ap.error("--kv-bits conflicts with the schedule file's kv_tiers")
+        # The file's pallas reads back as cuda (schedule_io).
+        file_backends = {p.backend for p in schedule._all_precisions()}
+        if file_backends != {args.backend}:
+            ap.error(f"--backend {args.backend} does not match the schedule "
+                     f"file's backend(s) {sorted(file_backends)}; pass the "
+                     "matching --backend (or re-emit the file with "
+                     "repro_torch.launch.autoprec --backend)")
+        # Requests round-robin over the loaded tier names as over --tiers.
+        args.tiers = list(schedule.tier_names)
+    elif args.tiers:
         if args.baseline:
             ap.error("--baseline has no per-request tier switching "
                      "(it pins one tier); drop --tiers")
@@ -241,8 +279,9 @@ def main(argv=None):
         ap.error("--temperature needs the continuous-batching engine; the "
                  "baseline decodes greedily (drop --baseline)")
 
-    schedule = None
-    if args.tiers:
+    if schedule is not None:
+        policy = schedule.policy_for()
+    elif args.tiers:
         if args.backend == "dense":
             ap.error("--tiers needs an integer backend")
         schedule = uniform_schedule(

@@ -634,6 +634,13 @@ def attention_apply(params: Dict[str, Any], x: torch.Tensor, rt: Runtime,
             cache.update(k, v, start, new_length=seq_lengths)
             kf, vf = cache.read(q.dtype)
             out = flash_attention(q, kf, vf, causal=True, q_offset=start)
+    elif rt.groups is not None and len(rt.groups) > 1:
+        # Each row group of a mixed-tier layout attends as a batch of its
+        # own, so its bits equal a forward of that group alone: the card's
+        # batched GEMMs choose their algorithm by the batch count.
+        sizes = [n for _, n in rt.groups]
+        out = torch.cat([flash_attention(*t, causal=True) for t in zip(
+            q.split(sizes), k.split(sizes), v.split(sizes))])
     else:
         out = flash_attention(q, k, v, causal=True)
     out = out.reshape(b, s, h * dh)

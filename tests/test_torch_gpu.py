@@ -726,3 +726,61 @@ def test_decode_dispatch_count_equals_one_step_launches(gen):
     assert sum(_build.LAUNCHES.values()) == n
     assert _build.LAUNCHES["act_quant_rows"] == 4 * 4 + 1
     assert _build.LAUNCHES["grouped_dequant_matmul"] == 7 * 4 + 1
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("w_bits,a_bits", [(8, 8), (6, 8), (4, 4), (2, 2)])
+def test_simulators_equal_kernel_3(gen, w_bits, a_bits, signed):
+    """The PE-array simulator and Eq. (1) on the card equal kernel 3 on the
+    LSB-first planes of ``decompose_weights`` and the exact int64 product
+    (an unsigned 8-bit activation reaches kernel 3 as lo + 128 * hi)."""
+    from repro_torch.core import bitserial, pe_array
+    alo, ahi = decompose.weight_range(a_bits, signed)
+    wlo, whi = decompose.weight_range(w_bits, signed)
+    a = torch.randint(alo, ahi + 1, (8, 320), dtype=torch.int32,
+                      device="cuda", generator=gen)
+    w = torch.randint(wlo, whi + 1, (320, 96), dtype=torch.int32,
+                      device="cuda", generator=gen)
+    exact = a.cpu().long() @ w.cpu().long()
+    planes = decompose.decompose_weights(w, w_bits, signed=signed)
+    shifts = decompose.plane_shifts(w_bits, signed)
+    if int(a.max()) <= 127:
+        k3 = _counted("bitserial_matmul", lambda: bsm.bitserial_matmul(
+            a.to(torch.int8), planes, shifts))
+    else:
+        lo, hi = (a & 127).to(torch.int8), (a >> 7).to(torch.int8)
+        k3 = bsm.bitserial_matmul(lo, planes, shifts) \
+            + (bsm.bitserial_matmul(hi, planes, shifts) << 7)
+    sim, stats = pe_array.pe_array_matmul(a, w, w_bits=w_bits, a_bits=a_bits,
+                                          a_signed=signed, w_signed=signed)
+    mac = bitserial.bitserial_mac(a, w, a_bits, w_bits, a_signed=signed,
+                                  w_signed=signed)
+    for got in (k3, sim, mac):
+        assert got.dtype == torch.int32 and got.is_cuda
+        assert torch.equal(got.cpu().long(), exact)
+    assert stats.macs == 8 * 320 * 96 and stats.row_tiles == 5
+
+
+def test_batched_profile_equals_sequential_at_2_layers(gen):
+    """Full-width qwen3-8b at 2 layers: the one-pass profiler (kernels 1
+    and 4 over (6 + 1) * 2 * 8 rows) equals the sequential one (kernels 1
+    and 3) bit for bit, and the plain backend's profile."""
+    from repro_torch.autoprec import profile_sensitivity, random_calibration
+    model, params = _full_width(gen, layers=2)
+    calib = random_calibration(model.cfg, batches=1, batch=2, seq=8, seed=3)
+    kw = dict(calib=calib, choices=(2, 4), layers=[
+        "layers.pos0.attn.q_proj", "layers.pos0.mlp.down_proj", "lm_head"])
+    _build.reset_launches()
+    batched = profile_sensitivity(model, params, batched=True, block=8, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["grouped_dequant_matmul"] == 2 * 7 + 1
+    assert _build.LAUNCHES["bitserial_matmul"] == 0
+    _build.reset_launches()
+    seq = profile_sensitivity(model, params, batched=False, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bitserial_matmul"] == 7 * (2 * 7 + 1)
+    assert _build.LAUNCHES["grouped_dequant_matmul"] == 0
+    plain = profile_sensitivity(model, params, backend="decomposed", **kw)
+    for other in (seq, plain):
+        assert batched.kl == other.kl and batched.mse == other.mse
+    assert all(batched.kl[n][2] > 0.0 for n in batched.layers)
