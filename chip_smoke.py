@@ -180,6 +180,31 @@ Phases, in order (any failure exits non-zero and prints no result line):
             requests.  At 4 layers, (d) the ``cuda`` profile and joint
             divergences must equal the plain ``decomposed`` ones bit for
             bit, and (f) the served streams the plain replay's.
+4g. train   QAT training through the port's command line
+            ``repro_torch.launch.train.main``.  (a) The reference's own
+            flags at qwen3-8b's full width (d 4096, d_ff 12288, vocab
+            151936), depth cut 36 -> 4 (``--layers 4``: f32 AdamW moments
+            of 36 layers would not fit one card), seq 256, batch 8, w4a8
+            fake_quant, 30 steps on the card, ``--lr 3e-4`` (the default
+            scaled to the width; see ``TRAIN_FULL_ARGV``): prints every step's ms
+            (the median after the first), tokens/s, peak memory, the
+            first and last five losses, the grad norm and the share of the
+            dense bf16 bound 6 * N * tokens at the data-sheet peak; the
+            mean loss of the last 5 steps must be below the first 5's.
+            (b) ``examples/train_qat.py``'s "full" preset (d 640, 16
+            layers, vocab 32768, seq 256, batch 16, ``--accum 4``), 40
+            steps with ``--ckpt-every 20`` under ``build/train/``; then
+            ``step_40`` removed and the same flags again: the run
+            auto-resumes at step 20, and its params, moments and step must
+            equal the uninterrupted run's bit for bit.  (c) The reduced
+            qwen3-8b (AdamW) and the default ConvNet (SGD, unsigned
+            activations) take 4 steps on the card and on the CPU from one
+            initialisation: losses and weights within the tolerances
+            stated at ``TRAIN_LOSS_ATOL``.  (d) (a)'s trained weights
+            prepared into the superplane store serve phase 3's nine
+            requests at tiers 8/8 4/4 2/2 (kernels 1-4) with streams equal
+            to the plain ``decomposed`` replay on the same store; their
+            launches are the kernel line's ``train`` counts.
 5. fixed    the quickstart form, --w-bits 4 with the int8 KV cache and
             then the int4 one (--kv-bits 8, 4; LSB-first planes), at full
             width with the depth cut to 4 layers; for each, the ``cuda``
@@ -211,6 +236,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import pathlib
 import re
@@ -2621,6 +2647,339 @@ def phase_autoprec(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 4g
+# (a) The reference's own training flags at qwen3-8b's full width, depth
+# cut 36 -> 4 (f32 AdamW moments of all 36 layers would not fit one card),
+# with --lr 3e-4: the default 3e-3 scaled by the ratio of the weights'
+# init scales (1/sqrt(d_model)) at the reference test's width 64 and at
+# 4096 (3.75e-4).  AdamW moves every weight by about lr a step, so the
+# default moves a 4096-wide layer's weights by ~20 % of their scale a
+# step, and the loss rises instead of falling (in both packages).
+TRAIN_FULL_ARGV = ["--arch", "qwen3-8b", "--layers", "4", "--seq-len", "256",
+                   "--batch", "8", "--w-bits", "4", "--a-bits", "8",
+                   "--steps", "30", "--lr", "3e-4", "--device", "cuda"]
+# (b) examples/train_qat.py's "full" preset (~100M parameters), 300 -> 40
+# steps, a checkpoint every 20; --steps, --ckpt-every and --ckpt-dir are
+# added by the phase.
+TRAIN_RESUME_ARGV = ["--arch", "qwen3-8b", "--d-model", "640", "--layers",
+                     "16", "--vocab", "32768", "--seq-len", "256", "--batch",
+                     "16", "--accum", "4", "--w-bits", "4", "--device",
+                     "cuda"]
+TRAIN_RESUME_STEPS = (20, 40)
+BF16_PEAK_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
+# (c) card against CPU, 4 steps from one init: every step's loss within
+# TRAIN_LOSS_ATOL; each LM parameter within 4 * sum(lr) + 2 bf16 ulps of
+# its magnitude (two AdamW runs part by at most ~lr a step, one rounding
+# each), and the card's update (final - initial weights) within
+# TRAIN_UPDATE_RTOL of the CPU's in relative L2: twice the two packages'
+# own disagreement on one CPU (0.18 for these flags, the jitted reference
+# against the port, bf16: tests/test_torch_train.py::
+# test_four_steps_track_the_jitted_reference).  AdamW's first step moves every weight by
+# +-lr whatever its gradient's size, so a near-zero gradient that rounds
+# to the other sign moves it the other way, and QAT's 8-bit activation
+# codes flip on .5 boundaries with the summation order: runs that agree
+# in every op to a few ulps part this far in 4 steps.  The ConvNet's SGD
+# updates within CONV_UPDATE_RTOL (relative L2).
+TRAIN_LOSS_ATOL = 2e-2
+TRAIN_UPDATE_RTOL = 0.36
+CONV_LOSS_RTOL = 1e-3
+CONV_UPDATE_RTOL = 0.05
+TRAIN_SERVE_USED = ("act_quant", "act_quant_rows", "bitserial_matmul",
+                    "grouped_dequant_matmul")
+
+
+def _recorded_steps(module, records: list):
+    """Wrap ``module.make_train_step`` (a command line's own reference) so
+    that every step it makes is fenced and records its ms and metrics;
+    returns the undo."""
+    saved = module.make_train_step
+
+    def make(*args, **kwargs):
+        fn = saved(*args, **kwargs)
+
+        def step(state, batch):
+            sync()
+            t0 = time.perf_counter()
+            state, metrics = fn(state, batch)
+            sync()
+            records.append({"ms": 1e3 * (time.perf_counter() - t0),
+                            **{k: float(v) for k, v in metrics.items()},
+                            "tokens": int(batch["labels"].numel())})
+            return state, metrics
+        return step
+    module.make_train_step = make
+    return lambda: setattr(module, "make_train_step", saved)
+
+
+def _train_cli(argv, label: str) -> tuple:
+    """``launch.train.main(argv)`` with every step recorded; returns (state,
+    records, peak GB)."""
+    import torch
+    from repro_torch.launch import train as train_cli
+    log(f"[{label}] python -m repro_torch.launch.train " + " ".join(argv))
+    records: list = []
+    undo = _recorded_steps(train_cli, records)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state = train_cli.main(argv)
+    finally:
+        undo()
+    sync()
+    return state, records, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _leaf_pairs(a, b):
+    from repro_torch.train.optimizer import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        raise AssertionError("trees differ in structure")
+    return list(zip(la, lb))
+
+
+def _train_full(card: str) -> dict:
+    """(a): 30 steps of full-width qwen3-8b (4 layers) through the command
+    line on the card."""
+    from repro_torch.train.optimizer import tree_leaves
+    state, rec, peak = _train_cli(TRAIN_FULL_ARGV, "train-full")
+    params = state["params"]
+    n_all = sum(t.numel() for t in tree_leaves(params))
+    n_matmul = n_all - params["embed"]["emb"].numel()
+    ms = statistics.median(r["ms"] for r in rec[1:])
+    tokens = rec[0]["tokens"]
+    losses = [r["loss"] for r in rec]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    res = {
+        "card": card, "steps": len(rec), "tokens_per_step": tokens,
+        "first_step_ms": rec[0]["ms"], "step_ms": ms,
+        "step_ms_min": min(r["ms"] for r in rec[1:]),
+        "step_ms_max": max(r["ms"] for r in rec[1:]),
+        "tokens_per_s": tokens / (ms / 1e3), "peak_mem_gb": peak,
+        "params": n_all, "matmul_params": n_matmul,
+        "flop_bound_ms": 6 * n_all * tokens / BF16_PEAK_FLOPS * 1e3,
+        "flop_bound_ms_matmul": 6 * n_matmul * tokens / BF16_PEAK_FLOPS * 1e3,
+        "loss_first5": losses[:5], "loss_last5": losses[-5:],
+        "loss_ratio": last / first,
+        "grad_norm_first_last": [rec[0]["grad_norm"], rec[-1]["grad_norm"]],
+    }
+    res["flop_bound_share"] = res["flop_bound_ms"] / ms
+    res["flop_bound_share_matmul"] = res["flop_bound_ms_matmul"] / ms
+    log("[train-full] " + json.dumps(res, sort_keys=True))
+    log(f"[train-full] bound: 6 * N * tokens at the card's data-sheet bf16 "
+        f"peak ({BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s, dense, 700 W part): "
+        f"{res['flop_bound_ms']:.2f} ms (N = all {n_all} parameters), "
+        f"{res['flop_bound_ms_matmul']:.2f} ms (N = the {n_matmul} that "
+        f"enter a matmul); the step takes {ms:.1f} ms")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train-full: non-finite loss {losses}")
+    if not last < first:
+        raise AssertionError(f"train-full: the loss did not fall: mean of "
+                             f"the first 5 {first}, of the last 5 {last}")
+    log(f"[train-full] mean loss of the last 5 steps / first 5: "
+        f"{res['loss_ratio']:.4f} ("
+        f"{'meets' if res['loss_ratio'] < 0.85 else 'misses'} the "
+        f"reference test's < 0.85 at reduced size)")
+    return {"res": res, "params": params}
+
+
+def _train_resume() -> dict:
+    """(b): 40 steps straight against 20 + auto-resume + 20, bit for bit."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    directory = ROOT / "build" / "train" / "resume"
+    shutil.rmtree(directory, ignore_errors=True)
+    half, total = TRAIN_RESUME_STEPS
+    argv = TRAIN_RESUME_ARGV + ["--steps", str(total), "--ckpt-every",
+                                str(half), "--ckpt-dir", str(directory)]
+    straight, rec, peak = _train_cli(argv, "train-resume")
+    steps = ckpt.list_steps(str(directory))
+    ckpt.remove(str(directory), total)
+    resumed, rec2, _ = _train_cli(argv, "train-resume")
+    differ = [i for i, (a, b) in enumerate(_leaf_pairs(straight, resumed))
+              if not torch.equal(a, b)]
+    res = {"steps_saved": steps, "resumed_steps": len(rec2),
+           "step_ms": statistics.median(r["ms"] for r in rec[1:]),
+           "peak_mem_gb": peak, "leaves": len(_leaf_pairs(straight, resumed)),
+           "leaves_differing": len(differ)}
+    log("[train-resume] " + json.dumps(res, sort_keys=True))
+    if steps != [half, total] or len(rec2) != total - half:
+        raise AssertionError(f"train-resume: saved {steps}, resumed for "
+                             f"{len(rec2)} steps")
+    if differ:
+        raise AssertionError(f"train-resume: {len(differ)} leaves of the "
+                             "resumed state differ from the uninterrupted run")
+    log("[train-resume] params, moments and step of the resumed run equal "
+        "the uninterrupted run's bit for bit")
+    shutil.rmtree(directory, ignore_errors=True)
+    return res
+
+
+def _lm_on(device: str, params, steps: int) -> tuple:
+    """``steps`` QAT steps of the reduced qwen3-8b on ``device`` (the
+    command line's defaults: w4a8, lr 3e-3, seq 64, batch 8)."""
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.policy import uniform_policy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.transformer import LM
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.step import make_train_step
+    cfg = reduced_config("qwen3-8b")
+    ocfg = optim.OptConfig(lr=3e-3, warmup_steps=5, total_steps=steps)
+    step = make_train_step(LM(cfg), Runtime(policy=uniform_policy(
+        4, 8, backend="fake_quant")), ocfg)
+    params = optim.tree_map(lambda t: t.to(device), params)
+    state = {"params": params, "opt": optim.init_state(params, ocfg)}
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                  global_batch=8))
+    losses, lrs = [], []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch(i).items()}
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        lrs.append(float(m["lr"]))
+    return state["params"], losses, lrs
+
+
+def _conv_on(device: str, params, steps: int) -> tuple:
+    """``steps`` SGD steps (lr 0.05) of the default ConvNet, fake_quant
+    w4a8 with unsigned activations, on the synthetic image classes."""
+    import numpy as np
+    import torch
+    from repro_torch.core.policy import uniform_policy
+    from repro_torch.models.convnet import ConvNet, ConvNetConfig
+    from repro_torch.models.layers import Runtime
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.step import value_and_grad
+    net = ConvNet(ConvNetConfig())
+    rt = Runtime(policy=uniform_policy(4, 8, backend="fake_quant",
+                                       a_signed=False))
+    rng = np.random.default_rng(0)
+    patterns = rng.random((10, 3)).astype(np.float32)
+
+    def loss(p, batch):
+        logits = net.apply(p, batch["x"], rt)
+        lse = torch.logsumexp(logits, -1)
+        ce = torch.mean(lse - logits.gather(1, batch["y"][:, None])[:, 0])
+        return ce, {"loss": ce}
+    params = optim.tree_map(lambda t: t.to(device), params)
+    losses = []
+    for _ in range(steps):
+        ys = rng.integers(0, 10, size=16)
+        xs = rng.normal(size=(16, 32, 32, 3)).astype(np.float32) * 0.1
+        xs += patterns[ys][:, None, None, :]
+        m, g = value_and_grad(loss, params, {
+            "x": torch.from_numpy(xs).to(device),
+            "y": torch.from_numpy(ys).to(device)})
+        params = optim.tree_map(lambda a, b: a - 0.05 * b, params, g)
+        losses.append(float(m["loss"]))
+    return params, losses
+
+
+def _train_card_vs_cpu() -> dict:
+    """(c): the reduced qwen3-8b and the ConvNet, 4 steps each on the card
+    and on the CPU from the same initial weights (drawn on the CPU)."""
+    import torch
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.convnet import ConvNet, ConvNetConfig
+    from repro_torch.models.transformer import LM
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    lm0 = LM(reduced_config("qwen3-8b")).init(gen, device="cpu")
+    conv0 = ConvNet(ConvNetConfig()).init(gen, device="cpu")
+    reduce_bf16 = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    res = {"allow_bf16_reduced_precision_reduction": reduce_bf16,
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    card = MIXED_KW["device"]
+    p_gpu, l_gpu, lrs = _lm_on(card, lm0, 4)
+    p_cpu, l_cpu, _ = _lm_on("cpu", lm0, 4)
+    budget = 4 * sum(lrs)
+    worst, num, den = 0.0, 0.0, 0.0
+    for (a, b), (_, z) in zip(_leaf_pairs(p_gpu, p_cpu),
+                              _leaf_pairs(p_cpu, lm0)):
+        a, b, z = a.cpu().float(), b.float(), z.float()
+        ulp = torch.clamp_min(b.abs(), 1e-30) * 2.0 ** -7
+        diff = (a - b).abs()
+        worst = max(worst, float((diff / (budget + 2 * ulp)).max()))
+        num += float((diff ** 2).sum())
+        den += float(((b - z) ** 2).sum())
+    res.update(lm_losses_cuda=l_gpu, lm_losses_cpu=l_cpu,
+               lm_max_loss_diff=max(abs(x - y) for x, y in zip(l_gpu, l_cpu)),
+               lm_worst_over_budget=worst,
+               lm_update_rel_l2=(num / den) ** 0.5)
+    c_gpu, cl_gpu = _conv_on(card, conv0, 4)
+    c_cpu, cl_cpu = _conv_on("cpu", conv0, 4)
+    num = den = 0.0
+    for (a, b), (_, z) in zip(_leaf_pairs(c_gpu, c_cpu),
+                              _leaf_pairs(c_cpu, conv0)):
+        num += float(((a.cpu() - b) ** 2).sum())
+        den += float(((b - z) ** 2).sum())
+    res.update(conv_losses_cuda=cl_gpu, conv_losses_cpu=cl_cpu,
+               conv_max_loss_rel=max(abs(x - y) / abs(y)
+                                     for x, y in zip(cl_gpu, cl_cpu)),
+               conv_update_rel_l2=(num / den) ** 0.5)
+    log("[train-cpu] " + json.dumps(res, sort_keys=True))
+    if res["lm_max_loss_diff"] > TRAIN_LOSS_ATOL or worst > 1.0 \
+            or res["lm_update_rel_l2"] > TRAIN_UPDATE_RTOL:
+        raise AssertionError(f"train-cpu: the LM on the card parts from the "
+                             f"CPU's: {res}")
+    if res["conv_max_loss_rel"] > CONV_LOSS_RTOL \
+            or res["conv_update_rel_l2"] > CONV_UPDATE_RTOL:
+        raise AssertionError(f"train-cpu: the ConvNet on the card parts "
+                             f"from the CPU's: {res}")
+    log(f"[train-cpu] card == CPU within the stated tolerances "
+        f"(allow_bf16_reduced_precision_reduction={reduce_bf16})")
+    return res
+
+
+def _train_serve(params) -> dict:
+    """(d): the trained full-width weights prepared into the superplane
+    store and served at tiers 8/8 4/4 2/2 through kernels 1-4, against the
+    plain replay on the same store."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import uniform_schedule
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve import engine as engine_mod
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=4)
+    model = LM(cfg)
+    sched = uniform_schedule(TIERS, backend="cuda")
+    store, _ = engine_mod.prepare_params(params, sched.prepare_policy(),
+                                         model, superplane=True)
+    del params
+    reqs = _requests(9, cfg.vocab_size, 16, list(TIERS), seed=1)
+    eng = engine_mod.ServeEngine(model, store, Runtime(
+        policy=sched.policy_for(), schedule=sched), **MIXED_KW)
+    res = _serve(eng, reqs, "train-serve")
+    _check_streams("train-serve", res["tokens"], reqs, cfg.padded_vocab)
+    _check_launches("train-serve", res["stats"]["launches"],
+                    used=TRAIN_SERVE_USED,
+                    unused=("packed_bitserial_matmul", "grouped_matmul"))
+    del eng
+    plain = uniform_schedule(TIERS, backend="decomposed")
+    ref_eng = engine_mod.ServeEngine(model, store, Runtime(
+        policy=plain.policy_for(), schedule=plain), **MIXED_KW)
+    _check_plain("train-serve", _serve(ref_eng, reqs, "train-serve-plain"),
+                 res)
+    return res["stats"]
+
+
+def phase_train(card: str) -> dict:
+    """Phase 4g: QAT training on the card through the port's command line,
+    its auto-resume, card against CPU, and the trained weights served."""
+    full = _train_full(card)
+    resume = _train_resume()
+    vs_cpu = _train_card_vs_cpu()
+    served = _train_serve(full.pop("params"))
+    return {"full": full["res"], "resume": resume, "cpu": vs_cpu,
+            "serve": served, "launches": served["launches"]}
+
+
 def phase_fixed() -> dict:
     from repro_torch.core.policy import uniform_policy
     from repro_torch.models.layers import Runtime
@@ -3047,6 +3406,7 @@ def main() -> int:
                        ("archs", lambda: phase_archs(out["build"]["card"])),
                        ("autoprec", lambda: phase_autoprec(
                            out["build"]["card"])),
+                       ("train", lambda: phase_train(out["build"]["card"])),
                        ("fixed", phase_fixed), ("times", phase_times)):
         t = time.perf_counter()
         out[phase] = run()
@@ -3072,7 +3432,7 @@ def main() -> int:
             "launches_by_path": {path: out[path]["launches"][name]
                                  for path in ("parity", "mixed", "packed",
                                               "spec", "tiers", "overload",
-                                              "archs", "autoprec")}}
+                                              "archs", "autoprec", "train")}}
         if name.startswith("act_quant"):
             entry["launch_floor_ms"] = out["times"]["launch_floor_ms"]
         if name == "grouped_dequant_matmul":   # its packed mode, on "packed"

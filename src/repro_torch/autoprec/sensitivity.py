@@ -157,7 +157,7 @@ def measure_tiers(model: Any, params: Any,
                 perm = torch.arange((len(blk) + 1) * batch, device=dev)
                 rt_g = rt.for_groups(groups, perm)
                 for b in range(n_batches):
-                    logits = model.forward(
+                    logits, _ = model.forward(
                         params, rt_g, tokens=toks[b].repeat(len(blk) + 1, 1))
                     base = logits[:batch]
                     divs = torch.stack([torch.stack(_kl_mse(
@@ -167,12 +167,12 @@ def measure_tiers(model: Any, params: Any,
                         acc[t] += divs[j].astype(np.float64)
         else:
             base_logits = [model.forward(params, rt.for_tier(BASE_TIER),
-                                         tokens=toks[b])
+                                         tokens=toks[b])[0]
                            for b in range(n_batches)]
             for t in tiers:
                 for b in range(n_batches):
-                    pert = model.forward(params, rt.for_tier(t),
-                                         tokens=toks[b])
+                    pert, _ = model.forward(params, rt.for_tier(t),
+                                            tokens=toks[b])
                     kl, mse = _kl_mse(base_logits[b], pert)
                     acc[t] += [float(kl), float(mse)]
 

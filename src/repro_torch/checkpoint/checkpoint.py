@@ -198,7 +198,8 @@ def _as_target(arr: np.ndarray, leaf: Any, device: Any) -> Any:
     """A stored array in the dtype (and for a tensor, on the device) of
     the target's leaf."""
     if isinstance(leaf, torch.Tensor):
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        # ascontiguousarray makes a 0-dim array 1-dim: keep the shape.
+        t = torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape)
         return t.to(device=device, dtype=leaf.dtype)
     return arr.astype(np.asarray(leaf).dtype)
 

@@ -16,6 +16,10 @@ or packed [E, K, N], scale [E, 1, N]: the port's expert-stacked store).
 SSM leaves (``A_log``, ``dt_bias``, ``D`` in f32; ``conv_w``, ``conv_b``
 in bf16) and the f32 router convert as they are.
 
+:func:`stack_layers` goes the other way for trees of tensors (a train
+state's params and moments), so train-state checkpoints carry the
+reference's leaf names.
+
 This module does not import jax: it receives numpy and recognises a
 prepared weight by its fields.
 """
@@ -40,7 +44,8 @@ def to_torch(a: Any, device: Any = None) -> torch.Tensor:
         t = t.view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(a).copy())
-    return t.to(resolve_device(device))
+    # ascontiguousarray makes a 0-dim array 1-dim: keep the shape.
+    return t.reshape(a.shape).to(resolve_device(device))
 
 
 def _is_quantized(leaf: Any) -> bool:
@@ -108,3 +113,51 @@ def _flat(tree: Any):
             yield from _flat(v)
     else:
         yield tree
+
+
+def stack_layers(tree: Any, device: Any = None) -> Any:
+    """The inverse of :func:`convert_params`'s unstacking, for trees of
+    tensors: every ``"layers"`` list of per-layer dicts, at any depth (the
+    params of a train state and its moments ``m``/``v``), becomes the
+    reference's ``"periods"`` dict of leaves stacked along a new leading
+    axis ([n_periods, ...]).  Leaves are moved to ``device`` first (None:
+    where they are), so a host copy never holds the card's memory twice."""
+    if isinstance(tree, dict):
+        out: Dict[str, Any] = {}
+        for key, val in tree.items():
+            if key == "layers" and isinstance(val, list):
+                out["periods"] = _stack(val, device)
+            else:
+                out[key] = stack_layers(val, device)
+        return out
+    return tree
+
+
+def _stack(layers: list, device: Any) -> Any:
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([layer[k] for layer in layers], device)
+                for k in first}
+    return torch.stack([t if device is None else t.to(device)
+                        for t in layers])
+
+
+def unstack_layers(tree: Any) -> Any:
+    """Inverse of :func:`stack_layers`: each ``"periods"`` dict becomes a
+    ``"layers"`` list of per-layer views of its leaves."""
+    if isinstance(tree, dict):
+        out: Dict[str, Any] = {}
+        for key, val in tree.items():
+            if key == "periods":
+                n = next(iter(_flat(val))).shape[0]
+                out["layers"] = [_index(val, i) for i in range(n)]
+            else:
+                out[key] = unstack_layers(val)
+        return out
+    return tree
+
+
+def _index(tree: Any, i: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]

@@ -62,13 +62,36 @@ def quantize(x: torch.Tensor, cfg: QuantConfig,
     return q.to(dtype), scale.to(torch.float32)
 
 
+class _SteRound(torch.autograd.Function):
+    """``round`` (half to even) whose gradient is the identity: the
+    reference's ``_ste_round`` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        return g
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: a minimum of a maximum, so a value exactly at a bound
+    passes half of its gradient, as in the reference (``torch.clamp``
+    would pass all of it)."""
+    def bound(v: float) -> torch.Tensor:
+        return torch.full((), v, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, bound(lo)), bound(hi))
+
+
 def fake_quant(x: torch.Tensor, cfg: QuantConfig,
                scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Quantize-dequantize with a straight-through gradient inside the clip
-    range (the QAT building block)."""
+    range (the QAT building block); gradients equal ``jax.grad`` of the
+    reference's, the half gradient at a clip bound included (an exact zero
+    under unsigned quantization sits on ``qmin``)."""
     scale = compute_scale(x, cfg) if scale is None else scale
-    clipped = torch.clamp(x / scale, cfg.qmin, cfg.qmax)
-    return (clipped + (torch.round(clipped) - clipped).detach()) * scale
+    return _SteRound.apply(_clip(x / scale, cfg.qmin, cfg.qmax)) * scale
 
 
 MAX_BITS = 8   # the superplane store always quantizes weights at this width

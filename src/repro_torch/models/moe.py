@@ -70,10 +70,10 @@ def route(params: Dict[str, Any], x: torch.Tensor, k: int, *,
 
 def aux_loss(probs: torch.Tensor, top_i: torch.Tensor) -> torch.Tensor:
     """The Switch load-balancing loss: E * sum(density * mean_prob), the
-    density counting each token's first choice.  (Serving does not need
-    it; ``moe_apply`` does not compute it.)"""
+    density counting each token's first choice."""
     e = probs.shape[-1]
-    density = F.one_hot(top_i[..., 0], e).to(torch.float32).mean(dim=(0, 1))
+    first = top_i[..., 0, None] == torch.arange(e, device=top_i.device)
+    density = first.to(torch.float32).mean(dim=(0, 1))
     return e * torch.sum(density * probs.mean(dim=(0, 1)))
 
 
@@ -130,15 +130,18 @@ def _expert_ffn(params: Dict[str, Any], i: int, x: torch.Tensor,
 
 def moe_apply(params: Dict[str, Any], x: torch.Tensor, rt: layers.Runtime,
               cfg, name: str, *, verify_window: bool = False
-              ) -> torch.Tensor:
-    """The MoE block on x [B, S, d] -> y [B, S, d], dropless when
-    ``rt.moe_dropless``.  A verify window is always dropless, since a
-    decode step never drops its one token and each window position must
-    equal its decode step."""
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE block on x [B, S, d]: returns (y [B, S, d], aux), aux the
+    f32 load-balancing loss (:func:`aux_loss`; zero in a verify window,
+    whose caller drops it).  Dropless when ``rt.moe_dropless``.  A verify
+    window is always dropless, since a decode step never drops its one
+    token and each window position must equal its decode step."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     dropless = verify_window or rt.moe_dropless
-    _, top_w, top_i = route(params, x, k, verify_window=verify_window)
+    probs, top_w, top_i = route(params, x, k, verify_window=verify_window)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if verify_window else aux_loss(probs, top_i)
     cap = capacity(s, cfg, dropless)
     keep, slot = dispatch_slots(top_i, e, cap)
 
@@ -160,4 +163,4 @@ def moe_apply(params: Dict[str, Any], x: torch.Tensor, rt: layers.Runtime,
     if cfg.shared_expert:
         y = y + layers.mlp_apply(params["shared"], x, rt, f"{name}.shared",
                                  verify_window=verify_window)
-    return y
+    return y, aux

@@ -74,7 +74,12 @@ class LM:
 
     # ------------------------------------------------------------- internals
     def _embed(self, params: Dict[str, Any],
-               tokens: torch.Tensor) -> torch.Tensor:
+               tokens: Optional[torch.Tensor] = None,
+               embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings, or the frontend stub's precomputed ``embeds``
+        [B, S, d] cast to the model dtype."""
+        if embeds is not None:
+            return embeds.to(self.cfg.dtype)
         return params["embed"]["emb"][tokens.to(torch.int64)]
 
     def _head(self, params: Dict[str, Any], x: torch.Tensor,
@@ -99,11 +104,14 @@ class LM:
                seq_lengths: Optional[torch.Tensor] = None,
                active: Optional[torch.Tensor] = None,
                verify_window: bool = False
-               ) -> Tuple[torch.Tensor, Optional[List[Dict[str, Any]]]]:
-        """The periods over x.  Returns (x, caches): the caches as the
-        mixers return them (the same objects, written in place, except a
-        verify window's per-step stacked SSM caches)."""
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                          Optional[List[Dict[str, Any]]]]:
+        """The periods over x.  Returns (x, aux, caches): aux the MoE
+        load-balancing losses summed in f32 (None without an MoE layer),
+        the caches as the mixers return them (the same objects, written in
+        place, except a verify window's per-step stacked SSM caches)."""
         cfg = self.cfg
+        aux: Optional[torch.Tensor] = None
         new_caches: Optional[List[Dict[str, Any]]] = \
             None if caches is None else []
         for li, period in enumerate(params["layers"]):
@@ -132,19 +140,29 @@ class LM:
                                              f"layers.pos{j}.mlp",
                                              verify_window=verify_window)
                 else:
-                    x = x + moe.moe_apply(blk["moe"], h2, rt, cfg,
-                                          f"layers.pos{j}.moe",
-                                          verify_window=verify_window)
+                    y, a = moe.moe_apply(blk["moe"], h2, rt, cfg,
+                                         f"layers.pos{j}.moe",
+                                         verify_window=verify_window)
+                    x = x + y
+                    aux = a if aux is None else aux + a
             if new_caches is not None:
                 new_caches.append(layer_caches)
-        return x, new_caches
+        return x, aux, new_caches
 
     # ---------------------------------------------------------------- public
     def forward(self, params: Dict[str, Any], rt: layers.Runtime,
-                tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence forward without a cache.  Returns logits [B, S, V]."""
-        x, _ = self._stack(params, self._embed(params, tokens), rt)
-        return self._head(params, x, rt)
+                tokens: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward without a cache (training, profiling) on
+        ``tokens`` [B, S] or ``embeds`` [B, S, d].  Returns (logits
+        [B, S, V], aux_loss), aux_loss the f32 sum of the MoE layers'
+        load-balancing losses (zero without MoE)."""
+        x, aux, _ = self._stack(params, self._embed(params, tokens, embeds),
+                                rt)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._head(params, x, rt), aux
 
     def init_cache(self, batch: int, max_len: int, kv_bits: Any = None,
                    device=None) -> List[Dict[str, Any]]:
@@ -174,14 +192,17 @@ class LM:
         return caches
 
     def prefill(self, params: Dict[str, Any], rt: layers.Runtime,
-                caches: List[Dict[str, Any]], tokens: torch.Tensor,
-                seq_lengths: Optional[torch.Tensor] = None):
+                caches: List[Dict[str, Any]],
+                tokens: Optional[torch.Tensor] = None,
+                seq_lengths: Optional[torch.Tensor] = None, *,
+                embeds: Optional[torch.Tensor] = None):
         """Run the prompt through the stack, filling the caches (in place)
         from position 0.  ``seq_lengths`` [B] supports right-padded batches:
-        logits are gathered at each row's last REAL position.
+        logits are gathered at each row's last REAL position.  ``embeds``
+        replaces ``tokens`` for a frontend stub.
         Returns (logits [B, 1, V], caches)."""
-        x, _ = self._stack(params, self._embed(params, tokens), rt,
-                           caches=caches, seq_lengths=seq_lengths)
+        x, _, _ = self._stack(params, self._embed(params, tokens, embeds),
+                              rt, caches=caches, seq_lengths=seq_lengths)
         if seq_lengths is None:
             last = x[:, -1:]
         else:
@@ -191,13 +212,16 @@ class LM:
         return self._head(params, last, rt), caches
 
     def decode_step(self, params: Dict[str, Any], rt: layers.Runtime,
-                    caches: List[Dict[str, Any]], tokens: torch.Tensor,
-                    active: Optional[torch.Tensor] = None):
+                    caches: List[Dict[str, Any]],
+                    tokens: Optional[torch.Tensor] = None,
+                    active: Optional[torch.Tensor] = None, *,
+                    embeds: Optional[torch.Tensor] = None):
         """One-token decode against filled caches; ``active`` [B] masks the
-        cache writes of finished or empty slots.
+        cache writes of finished or empty slots; ``embeds`` [B, 1, d]
+        replaces ``tokens`` for a frontend stub.
         Returns (logits [B, 1, V], caches)."""
-        x, _ = self._stack(params, self._embed(params, tokens), rt,
-                           caches=caches, active=active)
+        x, _, _ = self._stack(params, self._embed(params, tokens, embeds),
+                              rt, caches=caches, active=active)
         return self._head(params, x, rt), caches
 
     def verify_step(self, params: Dict[str, Any], rt: layers.Runtime,
@@ -216,7 +240,7 @@ class LM:
         per-step states stacked ([W, B, ...]), from which the engine keeps
         each slot's last accepted step (``serve.slots.select_verify_step``).
         Returns (logits [B, W, V], caches)."""
-        x, new_caches = self._stack(params, self._embed(params, tokens), rt,
-                                    caches=caches, active=active,
-                                    verify_window=True)
+        x, _, new_caches = self._stack(params, self._embed(params, tokens),
+                                       rt, caches=caches, active=active,
+                                       verify_window=True)
         return self._head(params, x, rt, verify_window=True), new_caches

@@ -269,7 +269,8 @@ def test_forward_matches_prefill_last_position(models):
     tpp = prepare_params(tp, pol, m)[0]
     toks = torch.from_numpy(np.random.default_rng(5).integers(
         0, 512, size=(2, 7)).astype(np.int32))
-    full = m.forward(tpp, Runtime(policy=pol), toks)
+    full, aux = m.forward(tpp, Runtime(policy=pol), toks)
+    assert aux.dtype == torch.float32 and float(aux) == 0.0
     last, _ = m.prefill(tpp, Runtime(policy=pol),
                         m.init_cache(2, 16, device="cpu"), tokens=toks)
     assert full.shape == (2, 7, m.cfg.padded_vocab)

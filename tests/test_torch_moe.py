@@ -163,7 +163,7 @@ def test_moe_apply_close(block, case):
                  moe_dropless=dropless)
     with jax.disable_jit():
         want, _ = jmoe.moe_apply(jp, x, jrt, jcfg, "layers.pos0.moe")
-    got = tmoe.moe_apply(tp, _t(x), rt, cfg, "layers.pos0.moe")
+    got, _ = tmoe.moe_apply(tp, _t(x), rt, cfg, "layers.pos0.moe")
     assert got.dtype == torch.bfloat16 and got.shape == (b, s, cfg.d_model)
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=RTOL_Y,
                                atol=ATOL_Y)
@@ -175,11 +175,11 @@ def test_verify_window_equals_decode_steps(block):
     arch, jcfg, jp, cfg, tp = block
     rt = Runtime(policy=uniform_policy(8, 8, backend="cuda"))
     x = _t(_x(3, 4, cfg.d_model, 91))
-    win = tmoe.moe_apply(tp, x, rt, cfg, "layers.pos0.moe",
-                         verify_window=True)
+    win, _ = tmoe.moe_apply(tp, x, rt, cfg, "layers.pos0.moe",
+                            verify_window=True)
     for j in range(x.shape[1]):
-        step = tmoe.moe_apply(tp, x[:, j:j + 1].contiguous(), rt, cfg,
-                              "layers.pos0.moe")
+        step, _ = tmoe.moe_apply(tp, x[:, j:j + 1].contiguous(), rt, cfg,
+                                 "layers.pos0.moe")
         assert torch.equal(step[:, 0], win[:, j]), j
 
 

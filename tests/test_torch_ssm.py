@@ -365,7 +365,7 @@ def test_decode_matches_full_forward(arch):
                  moe_dropless=True)
     tokens = torch.from_numpy(np.random.default_rng(7).integers(
         0, 512, size=(2, 12)).astype(np.int32))
-    full = m.forward(params, rt, tokens).to(torch.float32)
+    full = m.forward(params, rt, tokens)[0].to(torch.float32)
     caches = m.init_cache(2, 32, device="cpu")
     pre, _ = m.prefill(params, rt, caches, tokens[:, :-1])
     dec, _ = m.decode_step(params, rt, caches, tokens[:, -1:])
