@@ -205,6 +205,33 @@ Phases, in order (any failure exits non-zero and prints no result line):
             requests at tiers 8/8 4/4 2/2 (kernels 1-4) with streams equal
             to the plain ``decomposed`` replay on the same store; their
             launches are the kernel line's ``train`` counts.
+4h. tp      tensor-parallel serving over torch.distributed, every rank a
+            process started by ``launch.mesh.spawn_ranks``; ranks share
+            this one card, so the group is gloo and every gather stages
+            through host memory (step times time loopback, not NVLink).
+            (c) First, in this process: the attention core on each
+            rank's heads (2 and 4 ranks, KV heads sharded and the MQA
+            head replicated; decode against bf16, int8 and mixed arenas,
+            prefill at every prompt bucket of phase 3 and at 2048 tokens)
+            must equal the same heads of the whole call bit for bit (each
+            rank computes at the whole head count, its heads among zero
+            heads); prints decode attention's ms unsharded and for one
+            of 2 ranks.  (a) full-width, full-depth
+            qwen3-8b on 2 ranks, int8 planes, tiers 8/8 4/4 2/2: each rank
+            builds the full store in turn and keeps its shard before the
+            next builds; phase 3's nine requests give phase 3's streams on
+            every rank, kernels 1-4 launch (their counts per rank are the
+            kernel line's ``tp``), ``decode_dispatch_count`` equals the
+            unsharded graph's (398) at a three-tier and a one-tier layout,
+            and one decode step's code and output bytes on the wire equal
+            ``decode_wire_stats``; prints each rank's store bytes, build
+            and serving peaks, launches and decode-step ms.  (b) 4 ranks at
+            4 layers, both stores, kv_tiers {8/8: bf16, 4/4: 8, 2/2: 4}:
+            uid 0 migrated to 2/2, then uids 1 (spilled) and 2 preempted
+            and resumed prefill-free (no launch), a sampled run
+            (temperature 0.8, top-k 40) and a ``Telemetry(profile=True)``
+            run (rank 0 records) each equal the unsharded engine's run on
+            the same weights.  A rank's failure fails the phase.
 5. fixed    the quickstart form, --w-bits 4 with the int8 KV cache and
             then the int4 one (--kv-bits 8, 4; LSB-first planes), at full
             width with the depth cut to 4 layers; for each, the ``cuda``
@@ -2980,6 +3007,378 @@ def phase_train(card: str) -> dict:
             "serve": served, "launches": served["launches"]}
 
 
+# ------------------------------------------------------------ phase 4h
+TP_FULL_RANKS = 2
+TP_RANKS = 4
+TP_LAYERS = 4
+# Phase 4h (b): after the first round uid 0 moves to 2/2 (bf16 KV lanes to
+# int4); uid 1 is preempted through a spill, uid 2 in host memory.
+TP_MIGRATE = (0, "2/2")
+TP_PREEMPTS = ((1, True), (2, False))
+TP_SCENARIOS = ("migrate", "preempt", "sampled", "telemetry")
+
+
+def _tp_schedule(kv: bool):
+    from repro_torch.core.policy import uniform_schedule
+    from repro_torch.models.layers import Runtime
+    sched = uniform_schedule(TIERS, backend="cuda",
+                             kv_tiers=KV_TIERS if kv else None)
+    return sched, Runtime(policy=sched.policy_for(), schedule=sched)
+
+
+def _tp_requests(vocab: int, sampled: bool):
+    import dataclasses
+
+    from repro_torch.spec import SamplingParams
+    reqs = _requests(9, vocab, 16, list(TIERS), seed=1)
+    if sampled:
+        reqs = [dataclasses.replace(r, sampling=SamplingParams(0.8, 40,
+                                                               seed=r.uid))
+                for r in reqs]
+    return reqs
+
+
+def _tp_engine(model, params, scenario: str, *, mesh=None, spill=None):
+    """The engine of one phase 4h (b) scenario (kv-tier schedule; a
+    profiling telemetry for ``telemetry``)."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.telemetry import Telemetry
+    _, rt = _tp_schedule(kv=True)
+    tele = Telemetry(profile=True) if scenario == "telemetry" else None
+    return ServeEngine(model, params, rt, mesh=mesh, telemetry=tele,
+                       spill_dir=spill, **MIXED_KW)
+
+
+def _tp_scenario(eng, scenario: str, spill=None):
+    """One phase 4h (b) run on ``eng``: ``migrate`` (uid 0 to 2/2 after
+    the first round), ``preempt`` (the same, then uid 1 through a spill
+    and uid 2 in memory, both resumed prefill-free), ``sampled``
+    (temperature 0.8, top-k 40, no migration) or ``telemetry`` (as
+    ``migrate``, under the engine's profiling telemetry).  Returns
+    (streams, each resume's kernel launches)."""
+    handles = {r.uid: eng.submit(r) for r in _tp_requests(
+        eng.model.cfg.vocab_size, sampled=scenario == "sampled")}
+    resumes: list = []
+    eng._resume_into = _launch_delta(eng._resume_into, resumes)
+    eng.step()
+    if scenario != "sampled":
+        handles[TP_MIGRATE[0]].set_tier(TP_MIGRATE[1])
+    if scenario == "preempt":
+        for uid, spilled in TP_PREEMPTS:
+            eng._spill_dir = spill if spilled else None
+            eng.preempt(uid)
+        eng._spill_dir = spill
+    return eng.drain(), resumes
+
+
+def _tp_full(rank: int, mesh) -> dict:
+    """Phase 4h (a) on one rank of the 2-rank mesh: full-width, full-depth
+    qwen3-8b built one rank at a time (each full store is cut to the
+    rank's shard before the next rank builds), phase 3's requests served,
+    then one decode step at two layouts for the wire bytes and launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tp_serve
+    from repro_torch.launch.mesh import in_turn
+    from repro_torch.serve.engine import ServeEngine
+    sched, rt = _tp_schedule(kv=False)
+
+    def build():
+        torch.cuda.reset_peak_memory_stats()
+        cfg, model, params = _build_model(get_config("qwen3-8b").num_layers,
+                                          sched.prepare_policy(),
+                                          superplane=True, seed=0)
+        eng = ServeEngine(model, params, rt, mesh=mesh, **MIXED_KW)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return cfg, eng, torch.cuda.max_memory_allocated() / 1e9
+    cfg, eng, build_peak = in_turn(mesh, build)
+    reqs = _requests(9, cfg.vocab_size, 16, list(TIERS), seed=1)
+    tp_serve.reset_wire_bytes()
+    res = _serve(eng, reqs, f"tp-full-rank{rank}")
+    run_wire = dict(tp_serve.WIRE_BYTES)
+    names = list(TIERS)
+    layouts = {}
+    for label, tiers in (("mixed", [names[i % 3] for i in range(8)]),
+                         ("8/8", ["8/8"] * 8)):
+        groups = eng._group_layout(tiers)[0]
+        tp_serve.reset_wire_bytes()
+        n = eng.decode_dispatch_count(groups=groups)
+        layouts[label] = {
+            "groups": groups, "dispatches": n,
+            "wire": dict(tp_serve.WIRE_BYTES),
+            "stats": tp_serve.decode_wire_stats(
+                cfg, eng._tp, tuple((r, TIERS[t][1]) for t, r in groups))}
+    return {"tokens": res["tokens"], "stats": res["stats"],
+            "build_peak_gb": build_peak,
+            "store_bytes": _store_size(eng.params)[1],
+            "backend": mesh.backend, "device": str(mesh.device),
+            "run_wire": run_wire, "layouts": layouts,
+            "dispatches_derived": _dispatches_per_step(cfg)}
+
+
+def _tp_small(rank: int, mesh, spill: str) -> dict:
+    """Phase 4h (b) on one rank of the 4-rank mesh: the 4-layer model,
+    each store, every scenario."""
+    import torch
+
+    from repro_torch.launch.mesh import in_turn
+    sched, _ = _tp_schedule(kv=True)
+    free, total = torch.cuda.mem_get_info()
+    out = {"card_in_use_gb": (total - free) / 1e9}
+    print(f"[tp] rank {rank} (b): card memory in use "
+          f"{out['card_in_use_gb']:.2f} GB", file=sys.stderr, flush=True)
+    for packed in (False, True):
+        def build():
+            # Every scenario's engine keeps its shard; then the full store
+            # goes, before the next rank builds.
+            _, model, params = _build_model(
+                TP_LAYERS, sched.prepare_policy(), superplane=True, seed=0,
+                packed=packed)
+            engines = {sc: _tp_engine(model, params, sc, mesh=mesh,
+                                      spill=spill) for sc in TP_SCENARIOS}
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            return engines
+        engines = in_turn(mesh, build)
+        for scenario in TP_SCENARIOS:
+            eng = engines.pop(scenario)
+            toks, resumes = _tp_scenario(eng, scenario, spill=spill)
+            rec = {"tokens": toks, "prefills": eng.stats.prefills,
+                   "resumes": eng.stats.resumes, "resume_launches": resumes,
+                   "kv_migrations": eng.stats.kv_migrations,
+                   "telemetry": eng.telemetry is not None}
+            if scenario == "telemetry" and eng.telemetry is not None:
+                prof = eng.telemetry.profiler.snapshot()["phases"]
+                rec["decode_chunk_calls"] = prof["decode_chunk"]["calls"]
+                rec["decode_chunks"] = eng.stats.decode_chunks
+            out[(packed, scenario)] = rec
+            del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["spill_left"] = os.listdir(spill)
+    return out
+
+
+def _tp_rank(rank: int, spill: str) -> dict:
+    """One rank of phase 4h (every rank runs it; ranks off the 2-rank mesh
+    wait for (b)).  Quiet: the parent prints what the ranks return."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.launch.mesh import make_serve_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = {}
+        dev = MIXED_KW["device"]
+        mesh = make_serve_mesh(TP_FULL_RANKS, device=dev)
+        if mesh.member:
+            out["full"] = _tp_full(rank, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["small"] = _tp_small(rank, make_serve_mesh(TP_RANKS, device=dev),
+                                 spill)
+    return out
+
+
+def _head_slices() -> dict:
+    """Phase 4h (c): the attention core on each rank's heads equals the
+    same heads of the whole computation, bit for bit (decode against a
+    bf16, int8 and mixed arena; prefill at every prompt bucket of phase
+    3, and a 2048-token prompt: two K/V blocks), at qwen3-8b's shapes for
+    2 and 4 ranks, KV heads sharded and replicated (MQA), each rank's call
+    given its ``TPConfig`` as ``attention_apply`` gives it; and decode
+    attention's ms unsharded beside one of 2 ranks' calls."""
+    import torch
+
+    from repro_torch.distributed import tp_serve
+    from repro_torch.models import layers
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    def heads(t, r, n, dim=2):
+        return t.narrow(dim, r * t.shape[dim] // n, t.shape[dim] // n)
+
+    def tp(n, r, kvh):
+        return tp_serve.TPConfig(n=n, rank=r, kv_shards=kvh > 1)
+    b, s, h, dh = 8, MIXED_KW["max_len"], 32, 128
+    cases = 0
+    for kvh in (8, 1):
+        for kv_bits in (None, 8, (16, 8, 4)):
+            cache = layers.KVCache.create(b, s, kvh, dh, kv_bits=kv_bits,
+                                          device="cuda")
+            cache.update(rnd(b, s, kvh, dh), rnd(b, s, kvh, dh), 0,
+                         new_length=torch.randint(
+                             5, s - 5, (b,), generator=gen, device="cuda"))
+            q = rnd(b, 1, h, dh)
+            whole = layers.decode_attention(q, cache)
+            for n in (2, 4):
+                parts = []
+                for r in range(n):
+                    sub = cache if kvh == 1 else layers.KVCache(*[
+                        None if t is None else heads(t, r, n) if t.ndim == 4
+                        else t for t in (cache.k, cache.v, cache.k_scale,
+                                         cache.v_scale, cache.length,
+                                         cache.kv_bits)], modes=cache.modes)
+                    parts.append(layers.decode_attention(
+                        heads(q, r, n).contiguous(), sub, tp=tp(n, r, kvh)))
+                if not torch.equal(whole, torch.cat(parts, 2)):
+                    raise AssertionError(f"tp: decode attention on {n} "
+                                         f"ranks' heads (KV heads {kvh}, "
+                                         f"kv_bits {kv_bits}) differs")
+                cases += 1
+        for sq, sk in [(n, s) for n in range(16, 65, 8)] + [(2048, 2048)]:
+            q, k, v = rnd(1, sq, h, dh), rnd(1, sk, kvh, dh), rnd(1, sk, kvh,
+                                                                 dh)
+            whole = layers.flash_attention(q, k, v, causal=True)
+            for n in (2, 4):
+                parts = [layers.flash_attention(
+                    heads(q, r, n).contiguous(),
+                    *(t if kvh == 1 else heads(t, r, n).contiguous()
+                      for t in (k, v)), causal=True, tp=tp(n, r, kvh))
+                    for r in range(n)]
+                if not torch.equal(whole, torch.cat(parts, 2)):
+                    raise AssertionError(f"tp: prefill attention (sq {sq}) on "
+                                         f"{n} ranks' heads differs")
+                cases += 1
+    cache = layers.KVCache.create(b, s, 8, dh, device="cuda")
+    cache.update(rnd(b, s, 8, dh), rnd(b, s, 8, dh), 0,
+                 new_length=torch.full((b,), s // 2, device="cuda"))
+    q = rnd(b, 1, h, dh)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    ms = _time_ms(lambda: layers.decode_attention(q, cache), flush)
+    sub = layers.KVCache(heads(cache.k, 0, 2), heads(cache.v, 0, 2), None,
+                         None, cache.length)
+    q0 = heads(q, 0, 2).contiguous()
+    rank_ms = _time_ms(lambda: layers.decode_attention(q0, sub,
+                                                       tp=tp(2, 0, 8)), flush)
+    log(f"[tp] (c) {cases} head-slice cases bit-equal; decode attention "
+        f"(B {b}, S {s}, 32 heads, 8 KV heads) {ms:.4f} ms unsharded, "
+        f"{rank_ms:.4f} ms for one of 2 ranks (its heads among zero heads)")
+    return {"cases": cases, "decode_attention_ms": ms,
+            "rank_decode_attention_ms": rank_ms}
+
+
+def phase_tp(mixed: dict, card: str) -> dict:
+    """Phase 4h: tensor-parallel serving over torch.distributed; see the
+    module docstring."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import spawn_ranks
+    slices = _head_slices()
+    # (b)'s references: the unsharded engine on the same 4-layer weights.
+    sched, _ = _tp_schedule(kv=True)
+    want = {}
+    for packed in (False, True):
+        _, model, params = _build_model(TP_LAYERS, sched.prepare_policy(),
+                                        superplane=True, seed=0,
+                                        packed=packed)
+        for scenario in ("migrate", "sampled"):
+            want[(packed, scenario)] = _tp_scenario(
+                _tp_engine(model, params, scenario), scenario)[0]
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    spill = tempfile.mkdtemp(dir=ROOT / "build")
+    free, total = torch.cuda.mem_get_info()
+    log(f"[tp] card memory in use before the ranks start: "
+        f"{(total - free) / 1e9:.2f} GB (this process "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(TP_RANKS, _tp_rank, spill,
+                        device=MIXED_KW["device"])
+    secs = time.perf_counter() - t0
+    os.rmdir(spill)
+    # (a): every rank's streams are phase 3's.
+    full = [r["full"] for r in ranks if "full" in r]
+    for r, f in enumerate(full):
+        _check_same(f"tp-full-rank{r}", f["tokens"], mixed["streams"],
+                    "phase 3's")
+        _check_launches(f"tp-full-rank{r}", f["stats"]["launches"],
+                        used=("act_quant", "act_quant_rows",
+                              "bitserial_matmul", "grouped_dequant_matmul"),
+                        unused=("packed_bitserial_matmul", "grouped_matmul"))
+        for label, lay in f["layouts"].items():
+            if lay["dispatches"] != f["dispatches_derived"]:
+                raise AssertionError(
+                    f"tp-full-rank{r}: decode_dispatch_count at {label} "
+                    f"{lay['dispatches']}, the unsharded graph's "
+                    f"{f['dispatches_derived']}")
+            if lay["wire"]["codes"] != lay["stats"]["quant_gather_bytes"] \
+                    or lay["wire"]["outputs"] != \
+                    lay["stats"]["out_gather_bytes"]:
+                raise AssertionError(
+                    f"tp-full-rank{r}: wire bytes at {label} {lay['wire']} "
+                    f"against decode_wire_stats {lay['stats']}")
+    f0 = full[0]
+    log(f"[tp] (a) qwen3-8b, 36 layers, {TP_FULL_RANKS} ranks sharing "
+        f"{f0['device']} over {f0['backend']}: streams equal phase 3's on "
+        f"every rank; " + json.dumps({
+            "per_rank": [{
+                "store_bytes": f["store_bytes"],
+                "build_peak_gb": f["build_peak_gb"],
+                "serve_peak_gb": f["stats"]["peak_mem_gb"],
+                "launches": {k: v for k, v in f["stats"]["launches"].items()
+                             if v},
+                "decode_step_ms_gloo_host_loopback_one_card":
+                    f["stats"]["mean_decode_step_ms"],
+                "prefill_s": f["stats"]["prefill_s"],
+                "run_wire_bytes": f["run_wire"]} for f in full],
+            "card": card}))
+    for label, lay in f0["layouts"].items():
+        log(f"[tp] (a) one decode step at {label} {lay['groups']}: "
+            f"{lay['dispatches']} launches (the unsharded graph's), code "
+            f"bytes on the wire {lay['wire']['codes']} == decode_wire_stats "
+            f"{lay['stats']['quant_gather_bytes']:.0f} (f32 would be "
+            f"{lay['stats']['f32_gather_bytes']:.0f}), output bytes "
+            f"{lay['wire']['outputs']}")
+    # (b): every rank, store and scenario equals the unsharded engine.
+    for r, rank in enumerate(ranks):
+        small = rank["small"]
+        if small["spill_left"]:
+            raise AssertionError(f"tp-small-rank{r}: spill dir not empty")
+        for packed in (False, True):
+            for scenario in TP_SCENARIOS:
+                rec = small[(packed, scenario)]
+                ref = want[(packed, "sampled" if scenario == "sampled"
+                            else "migrate")]
+                _check_same(f"tp-small-rank{r}-{scenario}-packed{packed}",
+                            rec["tokens"], ref, "the unsharded engine's")
+                if scenario != "sampled" and rec["kv_migrations"] != 1:
+                    raise AssertionError(f"tp-small-rank{r}: no KV migration")
+                if scenario == "preempt" and (
+                        rec["resumes"] != 2 or rec["prefills"] != 9
+                        or any(any(d.values())
+                               for d in rec["resume_launches"])):
+                    raise AssertionError(
+                        f"tp-small-rank{r}: preemption {rec['resumes']} "
+                        f"resumes, {rec['prefills']} prefills, resume "
+                        f"launches {rec['resume_launches']}")
+                if scenario == "telemetry":
+                    if rec["telemetry"] != (r == 0) or (r == 0 and rec[
+                            "decode_chunk_calls"] != rec["decode_chunks"]):
+                        raise AssertionError(f"tp-small-rank{r}: telemetry "
+                                             f"{rec}")
+    log(f"[tp] (b) {TP_LAYERS} layers, {TP_RANKS} ranks, planes and packed: "
+        f"{', '.join(TP_SCENARIOS)} equal the unsharded engine on every "
+        f"rank; {secs:.1f}s for the ranks (start, build, (a), (b))")
+    return {"launches": f0["stats"]["launches"], "seconds": secs,
+            "slices": slices, "full": [{k: v for k, v in f.items()
+                                        if k != "tokens"} for f in full]}
+
+
 def phase_fixed() -> dict:
     from repro_torch.core.policy import uniform_policy
     from repro_torch.models.layers import Runtime
@@ -3407,6 +3806,8 @@ def main() -> int:
                        ("autoprec", lambda: phase_autoprec(
                            out["build"]["card"])),
                        ("train", lambda: phase_train(out["build"]["card"])),
+                       ("tp", lambda: phase_tp(out["mixed"],
+                                               out["build"]["card"])),
                        ("fixed", phase_fixed), ("times", phase_times)):
         t = time.perf_counter()
         out[phase] = run()
@@ -3432,7 +3833,8 @@ def main() -> int:
             "launches_by_path": {path: out[path]["launches"][name]
                                  for path in ("parity", "mixed", "packed",
                                               "spec", "tiers", "overload",
-                                              "archs", "autoprec", "train")}}
+                                              "archs", "autoprec", "train",
+                                              "tp")}}
         if name.startswith("act_quant"):
             entry["launch_floor_ms"] = out["times"]["launch_floor_ms"]
         if name == "grouped_dequant_matmul":   # its packed mode, on "packed"

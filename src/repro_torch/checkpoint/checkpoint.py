@@ -1,6 +1,6 @@
 """Atomic, manifest-versioned checkpoints of nested dicts and lists of
-arrays (port of ``repro.checkpoint.checkpoint``; mesh placement through
-``sharding_fn`` is ROADMAP Queue 1 item 10 and not here).
+arrays (port of ``repro.checkpoint.checkpoint``; ``restore``'s
+``sharding_fn`` keeps a tensor-parallel rank's shard of each leaf).
 
 Layout:    <dir>/step_<N>/manifest.json + leaf_<i>.npy  (one file per leaf)
 Atomicity: written to ``step_<N>.tmp``, then ``os.replace``'d: a crash mid-
@@ -26,7 +26,7 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -205,12 +205,18 @@ def _as_target(arr: np.ndarray, leaf: Any, device: Any) -> Any:
 
 
 def restore(directory: str, step: int, target: Any,
-            device: Any = "cpu") -> Tuple[Any, Dict[str, Any]]:
+            device: Any = "cpu",
+            sharding_fn: Optional[
+                Callable[[str, np.ndarray], np.ndarray]] = None
+            ) -> Tuple[Any, Dict[str, Any]]:
     """Restore into the structure of ``target`` (values replaced).
 
     ``target`` only contributes the tree, leaf shapes and dtypes.  A torch
     leaf comes back as a tensor on ``device`` (a numpy leaf as numpy).
-    Returns (tree, the ``extra`` dict saved with it)."""
+    ``sharding_fn(path, array)``, checked against the target's shape
+    first, returns the part of a loaded leaf this process keeps (a
+    tensor-parallel rank's shard; the reference's ``sharding_fn`` places
+    it on its mesh).  Returns (tree, the ``extra`` dict saved with it)."""
     path = _step_dir(directory, step)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -225,5 +231,7 @@ def restore(directory: str, step: int, target: Any,
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch at {p}: ckpt {arr.shape} "
                              f"vs target {tuple(leaf.shape)}")
+        if sharding_fn is not None:
+            arr = sharding_fn(p, arr)
         leaves[p] = _as_target(arr, leaf, dev)
     return _unflatten(target, leaves), manifest["extra"]

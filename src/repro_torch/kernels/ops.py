@@ -18,8 +18,7 @@ The ``decomposed`` backend is plain end to end: its activation
 quantization takes the plain versions in :mod:`ref` (the reference routes
 every backend's to its Pallas kernel, with the same codes), so on the card
 it launches no hand-written kernel and is the ``cuda`` backend's reference;
-like the reference's, it unpacks a packed store into planes.  Not ported
-yet: the tensor-parallel ``pre_quant`` entry.
+like the reference's, it unpacks a packed store into planes.
 """
 from __future__ import annotations
 
@@ -395,19 +394,29 @@ def quantize_activations_grouped(
 def fused_decode_linear(x: torch.Tensor, qw: QuantizedWeight,
                         row_groups: RowGroups, perm: Optional[torch.Tensor],
                         *, act_quants: Optional[ActQuants] = None,
+                        pre_quant: Optional[Tuple[torch.Tensor,
+                                                  torch.Tensor]] = None,
                         out_dtype: Optional[torch.dtype] = None
                         ) -> torch.Tensor:
     """The fused mixed-tier decode hot path, in two launches: ONE
     activation quantization over the whole batch, then ONE group-switching
     plane-prefix GEMM with both scales applied in its epilogue.  Returns
-    results in PERMUTED (group-sorted) order."""
+    results in PERMUTED (group-sorted) order.
+
+    ``pre_quant`` supplies already-quantized PERMUTED ``(codes, scales)``
+    and skips the quantization: the tensor-parallel path quantizes with a
+    mesh-shared range and gathers the codes, then lands here so its shards
+    run this same GEMM and epilogue."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     backends = tuple(dict.fromkeys(g.backend for _, g in row_groups))
     if len(backends) != 1 or backends[0] not in INTEGER_BACKENDS:
         raise ValueError("fused grouped matmul needs one integer backend "
                          f"across groups, got {backends}")
-    x_q, x_s = quantize_activations_grouped(x, row_groups, perm,
-                                            act_quants=act_quants)
+    if pre_quant is not None:
+        x_q, x_s = pre_quant
+    else:
+        x_q, x_s = quantize_activations_grouped(x, row_groups, perm,
+                                                act_quants=act_quants)
     k, n = qw.kn
     lead = x_q.shape[:-1]
     reps = 1

@@ -71,6 +71,16 @@ package's) serves with ``--schedule-file``: its tiers (``auto`` and
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --arch granite-3-8b --schedule-file schedule.json --device cpu
 
+Tensor-parallel serving (``--mesh N``): N ranks are started here (one
+process each, a ``torch.distributed`` group over gloo where they share a
+card or run on the CPU, NCCL when each has a card of its own); each keeps
+its shard of the store and the KV arena, o/down projections gather int8 or
+bit-packed activation codes, and every rank's streams equal the unsharded
+engine's.  Rank 0 prints the report:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --tiers 8/8 4/4 2/2 --mesh 2 --device cpu
+
 The backend defaults to ``cuda`` (the hand-written kernels) and the device
 to ``cuda``; ``--device cpu`` runs the kernels' plain versions.  Weights
 are random from ``--seed``, made and prepared layer by layer on the device.
@@ -78,7 +88,10 @@ are random from ``--seed``, made and prepared layer by layer on the device.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import sys
 import time
 
 import numpy as np
@@ -88,6 +101,7 @@ from repro_torch.autoprec import load_schedule
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.policy import uniform_policy, uniform_schedule
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.layers import Runtime
 from repro_torch.models.transformer import LM
 from repro_torch.serve import engine as engine_mod
@@ -100,6 +114,33 @@ from repro_torch.telemetry import Telemetry, serve_report, write_json
 
 
 def main(argv=None):
+    """Parse, check and serve; with ``--mesh N`` on N ranks started here
+    (every rank's streams must agree).  Returns {uid: tokens}."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args, schedule, policy = _parse(argv)
+    if not args.mesh:
+        return _serve(args, schedule, policy)
+    results = mesh_lib.spawn_ranks(args.mesh, _mesh_rank, argv,
+                                   device=args.device)
+    if any(r != results[0] for r in results[1:]):
+        raise RuntimeError("the ranks' streams differ")
+    return results[0]
+
+
+def _mesh_rank(rank, argv):
+    """One rank of ``--mesh``: the same parse and serve on its mesh; only
+    rank 0 prints."""
+    args, schedule, policy = _parse(argv)
+    mesh = mesh_lib.make_serve_mesh(args.mesh, device=args.device)
+    quiet = contextlib.redirect_stdout(io.StringIO()) if rank \
+        else contextlib.nullcontext()
+    with quiet:
+        return _serve(args, schedule, policy, mesh)
+
+
+def _parse(argv):
+    """The command line's flags, checked before any model is built:
+    (args, schedule or None, policy)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--reduced", action="store_true")
@@ -185,6 +226,12 @@ def main(argv=None):
                     help="fence every prefill, decode chunk and "
                          "speculative round on the device and report "
                          "per-phase seconds (same tokens, more syncs)")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="tensor-parallel serving over N ranks started here: "
+                         "each keeps a column shard of the superplane store "
+                         "and a KV-head shard of the arena, with quantized "
+                         "(int8 / bit-packed) activation gathers on the "
+                         "wire; token-identical to the unsharded engine")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
@@ -262,6 +309,9 @@ def main(argv=None):
         if args.serialize_tiers:
             ap.error("--speculate needs mixed-tier admission (drop "
                      "--serialize-tiers)")
+        if args.mesh:
+            ap.error("--speculate is not supported on a mesh engine yet; "
+                     "drop --mesh")
         if args.spec_k < 1:
             ap.error(f"--spec-k must be >= 1, got {args.spec_k}")
         if args.draft_tier is None:
@@ -278,6 +328,15 @@ def main(argv=None):
     if args.temperature > 0.0 and args.baseline:
         ap.error("--temperature needs the continuous-batching engine; the "
                  "baseline decodes greedily (drop --baseline)")
+    if args.mesh is not None:
+        if args.mesh < 1:
+            ap.error(f"--mesh must be >= 1, got {args.mesh}")
+        if args.baseline:
+            ap.error("--mesh needs the continuous-batching engine; drop "
+                     "--baseline")
+        if args.backend == "dense":
+            ap.error("--mesh shards the quantized plane store; it needs an "
+                     "integer backend (cuda/decomposed)")
 
     if schedule is not None:
         policy = schedule.policy_for()
@@ -290,7 +349,14 @@ def main(argv=None):
         policy = schedule.policy_for()
     else:
         policy = uniform_policy(args.w_bits, args.a_bits, backend=args.backend)
-    device = resolve_device(args.device)
+    return args, schedule, policy
+
+
+def _serve(args, schedule, policy, mesh=None):
+    """Build the model and the engine (on ``mesh``: one rank at a time,
+    each keeping its shard, so that no two full stores are ever held
+    together) and serve the request stream."""
+    device = mesh.device if mesh is not None else resolve_device(args.device)
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     model = LM(cfg)
@@ -306,25 +372,26 @@ def main(argv=None):
             return engine_mod.prepare_tree(tree, prep_policy, prefix=prefix,
                                            superplane=schedule is not None,
                                            packed=args.packed)
-    t0 = time.time()
-    params = model.init(gen, device=device, prepare=prepare)
     kind = ("dense" if prepare is None else
             ("superplane" if schedule else f"w{args.w_bits}")
             + f", packed={args.packed}")
-    print(f"initialised {cfg.name} ({kind}) on {device} in "
-          f"{time.time() - t0:.1f}s")
     # A reduced model serves its MoE layers dropless, as the reference's
     # command line does.
     rt = Runtime(policy=policy, moe_dropless=args.reduced, schedule=schedule)
     # The command line always serves with telemetry: the report at the end,
     # --metrics and --trace-out read it.
     tele = Telemetry(profile=args.profile)
-    if args.baseline:
-        engine = engine_mod.BatchServeEngine(
-            model, params, rt, max_batch=args.max_batch,
-            max_len=args.max_len, kv_bits=args.kv_bits, telemetry=tele,
-            device=device)
-    else:
+
+    def build():
+        t0 = time.time()
+        params = model.init(gen, device=device, prepare=prepare)
+        print(f"initialised {cfg.name} ({kind}) on {device} in "
+              f"{time.time() - t0:.1f}s")
+        if args.baseline:
+            return engine_mod.BatchServeEngine(
+                model, params, rt, max_batch=args.max_batch,
+                max_len=args.max_len, kv_bits=args.kv_bits, telemetry=tele,
+                device=device)
         scheduler_policy = SLOPolicy(
             schedule, auto_tier=args.auto_tier,
             mac_counts=cfg.quant_layer_macs() if schedule else None,
@@ -333,13 +400,18 @@ def main(argv=None):
             # displacement check sees it again.
             preempt_slack=2.0 * args.decode_chunk, shed=args.shed) \
             if args.slo else None
-        engine = engine_mod.ServeEngine(
+        return engine_mod.ServeEngine(
             model, params, rt, max_batch=args.max_batch,
             max_len=args.max_len, kv_bits=args.kv_bits,
             decode_chunk=args.decode_chunk,
             mixed_tiers=not args.serialize_tiers,
             scheduler_policy=scheduler_policy, spill_dir=args.spill_dir,
-            telemetry=tele, device=device)
+            telemetry=tele, device=device, mesh=mesh)
+    if mesh is None:
+        engine = build()
+    else:
+        engine = mesh_lib.in_turn(mesh, build)
+        print(f"mesh {mesh.n} ranks ({mesh.backend}, {device})")
 
     rng = np.random.default_rng(args.seed)
     tier_of = (lambda i: args.tiers[i % len(args.tiers)]) if args.tiers \

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core.policy import (INTEGER_BACKENDS, LayerPrecision,
                                      PrecisionPolicy, PrecisionSchedule)
+from repro_torch.distributed import tp_serve
 from repro_torch.kernels import ops
 
 
@@ -39,7 +40,10 @@ class Runtime:
     are int64 [B] tensors mapping batch rows into and out of that order.
     ``fused`` selects ONE group-switching GEMM per projection (default)
     over the per-group reference loop.  ``moe_dropless`` gives every MoE
-    layer a capacity of the whole sequence (no token is dropped)."""
+    layer a capacity of the whole sequence (no token is dropped).  ``tp``
+    (a ``distributed.tp_serve.TPConfig``) is set on a mesh engine: params
+    are this rank's shards, attention sees local head counts and the o/down
+    projections take the quantized-gather path."""
 
     policy: PrecisionPolicy
     moe_dropless: bool = False
@@ -49,6 +53,7 @@ class Runtime:
     perm: Optional[torch.Tensor] = None
     inv_perm: Optional[torch.Tensor] = None
     fused: bool = True
+    tp: Optional[Any] = None
 
     def prec(self, name: str) -> LayerPrecision:
         if self.schedule is not None:
@@ -100,9 +105,12 @@ def linear(params: Dict[str, Any], x: torch.Tensor, rt: Runtime, name: str,
     QuantizedWeight).  Under a mixed-tier runtime every prepared-weight
     matmul takes the per-row-group path: rows gathered into tier order
     inside ``ops.matmul``, results scattered back with ``rt.inv_perm``.
-    ``act_quants`` is shared by projections reading the SAME tensor."""
+    ``act_quants`` is shared by projections reading the SAME tensor.
+    Under ``rt.tp`` the o/down projections read feature-sharded inputs and
+    take ``distributed.tp_serve``'s gathered matmuls."""
     w = params["w"]
     if isinstance(w, ops.QuantizedWeight):
+        gathered = rt.tp is not None and rt.tp.gathers(name)
         if rt.groups is not None:
             if x.shape[0] != rt.group_batch:
                 raise ValueError(
@@ -110,17 +118,25 @@ def linear(params: Dict[str, Any], x: torch.Tensor, rt: Runtime, name: str,
                     f"but x has leading axis {x.shape[0]}")
             if len(rt.groups) == 1:       # homogeneous layout: no permuting
                 prec = _serve_backend(rt.schedule.lookup(name, rt.groups[0][0]))
+                if gathered:
+                    return tp_serve.gathered_matmul(x, w, prec, tp=rt.tp)
                 return ops.matmul(x, None, prec, qw=w, act_quants=act_quants)
             row_groups = tuple(
                 (n, _serve_backend(rt.schedule.lookup(name, t)))
                 for t, n in rt.groups)
+            if gathered:
+                yg = tp_serve.gathered_grouped_matmul(x, w, row_groups,
+                                                      rt.perm, tp=rt.tp)
+                return yg.index_select(0, rt.inv_perm)
             yg = ops.matmul(x, None, row_groups[0][1], qw=w,
                             row_groups=row_groups, perm=rt.perm,
                             fused=None if rt.fused else False,
                             act_quants=act_quants)
             return yg.index_select(0, rt.inv_perm)
-        return ops.matmul(x, None, _serve_backend(rt.prec(name)), qw=w,
-                          act_quants=act_quants)
+        prec = _serve_backend(rt.prec(name))
+        if gathered:
+            return tp_serve.gathered_matmul(x, w, prec, tp=rt.tp)
+        return ops.matmul(x, None, prec, qw=w, act_quants=act_quants)
     y = ops.matmul(x, w, rt.prec(name))
     if "b" in params:
         y = y + params["b"].to(y.dtype)
@@ -171,14 +187,49 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 NEG = -1e30
 
 
+def _whole_heads(t: torch.Tensor, tp) -> torch.Tensor:
+    """This rank's heads [B, S, H/n, Dh] in their place among zero heads
+    [B, S, H, Dh]."""
+    hl = t.shape[2]
+    out = t.new_zeros((t.shape[0], t.shape[1], hl * tp.n, t.shape[3]))
+    out.narrow(2, tp.rank * hl, hl).copy_(t)
+    return out
+
+
+def _as_unsharded(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  tp, **kw) -> torch.Tensor:
+    """``fn(q, k, v, **kw)`` on this rank's heads, computed at the unsharded
+    engine's head count (``tp``: ``distributed.tp_serve.TPConfig``).
+
+    A batched GEMM on the card takes its algorithm from the batch count,
+    so attention over a rank's share of the heads would round differently
+    from the same heads in the whole batch (the tensor-parallel engine
+    must equal the unsharded one bit for bit).  The rank's q heads (and
+    its K/V heads, when they are sharded) are placed among zero heads, so
+    every product is the unsharded engine's call, and its own heads are
+    read back: the rank does the whole layer's attention arithmetic (the
+    projections stay split)."""
+    if tp is None:
+        return fn(q, k, v, **kw)
+    hl = q.shape[2]
+    q = _whole_heads(q, tp)
+    if tp.kv_shards:
+        k, v = _whole_heads(k, tp), _whole_heads(v, tp)
+    return fn(q, k, v, **kw).narrow(2, tp.rank * hl, hl)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_k: int = 1024,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, tp=None) -> torch.Tensor:
     """Online-softmax attention over K/V blocks of ``block_k`` (plain
     torch; the reference's blocked recurrence, block for block).
 
     q: [B, Sq, H, Dh]; k, v: [B, Sk, KVH, Dh], H % KVH == 0 (GQA).
-    Returns [B, Sq, H, Dh] in q.dtype."""
+    Returns [B, Sq, H, Dh] in q.dtype.  ``tp``: this rank's heads, see
+    :func:`_as_unsharded`."""
+    if tp is not None:
+        return _as_unsharded(flash_attention, q, k, v, tp, causal=causal,
+                             block_k=block_k, q_offset=q_offset)
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -519,19 +570,26 @@ def softmax(s: torch.Tensor) -> torch.Tensor:
     return e / e.sum(dim=-1, keepdim=True)
 
 
-def decode_attention(q: torch.Tensor, cache: KVCache) -> torch.Tensor:
+def decode_attention(q: torch.Tensor, cache: KVCache, *,
+                     tp=None) -> torch.Tensor:
     """Single-step attention against a cache. q: [B, 1, H, Dh].  Grouped
     (kvh, g) form: scores in f32 from bf16 operands, per-slot length mask,
-    probabilities cast to bf16 before the PV product (f32 accumulation)."""
-    b, sq, h, dh = q.shape
+    probabilities cast to bf16 before the PV product (f32 accumulation).
+    ``tp``: this rank's heads, see :func:`_as_unsharded`."""
     k, v = cache.read(q.dtype)
+    return _as_unsharded(_decode_core, q, k, v, tp, length=cache.length)
+
+
+def _decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 length: torch.Tensor) -> torch.Tensor:
+    b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     scale = 1.0 / math.sqrt(dh)
     qg = q.reshape(b, sq, kvh, g, dh)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
                      k.to(torch.float32)) * scale
-    valid = torch.arange(sk, device=q.device)[None, :] < cache.length[:, None]
+    valid = torch.arange(sk, device=q.device)[None, :] < length[:, None]
     s = s.masked_fill(~valid[:, None, None, None, :], NEG)
     p = softmax(s)
     out = torch.einsum("bkgqs,bskd->bkgqd", p.to(q.dtype).to(torch.float32),
@@ -590,6 +648,13 @@ def attention_apply(params: Dict[str, Any], x: torch.Tensor, rt: Runtime,
     sequential decode step.  Returns (out, cache)."""
     b, s, _ = x.shape
     h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if rt.tp is not None:
+        # This rank's heads: a contiguous query-head slice maps onto the
+        # matching KV-head slice (kv_shards) or onto the one replicated
+        # MQA head, so the GQA grouping follows from the local counts.
+        h //= rt.tp.n
+        if rt.tp.kv_shards:
+            kvh //= rt.tp.n
     if positions is None:
         if cache_start is not None:
             base = torch.as_tensor(cache_start, dtype=torch.int32,
@@ -616,7 +681,7 @@ def attention_apply(params: Dict[str, Any], x: torch.Tensor, rt: Runtime,
             q_t = rope(q_t, pos_t, cfg.rope_theta)
             cache.append(rope(k_t, pos_t, cfg.rope_theta), v_t,
                          active=active)
-            return decode_attention(q_t, cache)
+            return decode_attention(q_t, cache, tp=rt.tp)
         out = per_position(step, q, k, v, positions.contiguous())
         out = out.reshape(b, s, h * dh)
         return linear(params["o_proj"], out, rt, f"{name}.o_proj"), cache
@@ -628,21 +693,23 @@ def attention_apply(params: Dict[str, Any], x: torch.Tensor, rt: Runtime,
     if cache is not None:
         if s == 1:
             cache.append(k, v, active=active)
-            out = decode_attention(q, cache)
+            out = decode_attention(q, cache, tp=rt.tp)
         else:
             start = 0 if cache_start is None else cache_start
             cache.update(k, v, start, new_length=seq_lengths)
             kf, vf = cache.read(q.dtype)
-            out = flash_attention(q, kf, vf, causal=True, q_offset=start)
+            out = flash_attention(q, kf, vf, causal=True, q_offset=start,
+                                  tp=rt.tp)
     elif rt.groups is not None and len(rt.groups) > 1:
         # Each row group of a mixed-tier layout attends as a batch of its
         # own, so its bits equal a forward of that group alone: the card's
         # batched GEMMs choose their algorithm by the batch count.
         sizes = [n for _, n in rt.groups]
-        out = torch.cat([flash_attention(*t, causal=True) for t in zip(
-            q.split(sizes), k.split(sizes), v.split(sizes))])
+        out = torch.cat([
+            flash_attention(*t, causal=True, tp=rt.tp)
+            for t in zip(q.split(sizes), k.split(sizes), v.split(sizes))])
     else:
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention(q, k, v, causal=True, tp=rt.tp)
     out = out.reshape(b, s, h * dh)
     return linear(params["o_proj"], out, rt, f"{name}.o_proj"), cache
 

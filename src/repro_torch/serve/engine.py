@@ -60,9 +60,19 @@ rounds, overload control and telemetry hooks, and the batch-at-a-time
   duck-typed) receives every lifecycle and dispatch hook; every hook site
   is guarded by ``telemetry is not None``, and the engine itself never
   synchronizes with the device (only a profiling telemetry fences).
-
-An engine asked for a mesh raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+* **Tensor-parallel serving** — ``mesh=`` (``launch.mesh.make_serve_mesh``)
+  makes the engine one rank of an SPMD group: every rank runs the same
+  engine on the same requests (host scheduling is deterministic, so each
+  takes the same decisions), keeps its N-shard of the prepared store and
+  its KV-head shard of the arena (``distributed.sharding_rules``), and
+  runs prefill, decode, migration and sampling with ``Runtime.tp`` set, so
+  collectives happen only inside ``linear`` (the quantized code wire,
+  ``distributed.tp_serve``).  Every replicated value, the tokens included,
+  is bit-equal across ranks and to the unsharded engine.  A preemption
+  snapshot gathers the KV-head shards (the host copy and its spill files
+  hold the unsharded engine's bytes) and a resume slices them back.  Only
+  rank 0 records telemetry and writes spill files; speculation on a mesh
+  raises.
 
 The scheduler clock is the number of decode steps executed
 (``ServeEngine.clock``).
@@ -81,6 +91,7 @@ import torch
 from repro_torch.checkpoint import checkpoint as checkpoint_lib
 from repro_torch.core.policy import INTEGER_BACKENDS, PrecisionPolicy
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding_rules, tp_serve
 from repro_torch.kernels import _build, ops
 from repro_torch.models.layers import Runtime
 from repro_torch.models.transformer import LM
@@ -103,9 +114,6 @@ GroupLayout = Tuple[Tuple[str, int], ...]
 # Global weight-preparation counter: every prepare_params call (one
 # quantize + decompose sweep over the params) bumps it.
 PREPARE_CALLS = 0
-
-TODO_MESH = "tensor-parallel serving is ROADMAP Queue 1 item 10, not ported yet"
-
 
 def _layer_name(path: Tuple[Any, ...]) -> str:
     """("layers", 3, "pos0", "attn", "q_proj", "w") -> layers.pos0.attn.q_proj"""
@@ -428,7 +436,13 @@ class ServeEngine(_DeferredErrors):
     keeping them in host memory; ``telemetry`` takes the lifecycle and
     dispatch hooks; ``count_dispatches`` records each decode layout's
     kernel launches (``decode_dispatch_count``) in ``stats``.  Everything
-    runs on ``device`` (default cuda); the params must live there."""
+    runs on ``device`` (default cuda); the params must live there.
+
+    ``mesh`` (a ``launch.mesh.ServeMesh``) makes this engine one rank of a
+    tensor-parallel group (see the module docstring): every rank of the
+    mesh constructs it with the same arguments (the full params; each keeps
+    its shard) and submits and steps the same requests in the same order.
+    Its ``device`` is the mesh's."""
 
     def __init__(self, model: LM, params: Any, rt: Runtime, *,
                  max_batch: int = 8, max_len: int = 512,
@@ -442,7 +456,14 @@ class ServeEngine(_DeferredErrors):
                  telemetry: Optional[Any] = None,
                  device: Any = None) -> None:
         if mesh is not None:
-            raise NotImplementedError(TODO_MESH)
+            if not mesh.member:
+                raise ValueError("this rank is not on the mesh (a mesh of "
+                                 f"{mesh.n} ranks takes the first {mesh.n})")
+            if device is not None and \
+                    resolve_device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.model = model
         self.rt = dataclasses.replace(rt, fused=fused_decode)
@@ -470,8 +491,22 @@ class ServeEngine(_DeferredErrors):
             self._mixed_kv = True
         self.arena = slots_lib.SlotArena(model, max_batch, max_len,
                                          kv_bits=arena_kv, device=self.device)
+        # Tensor parallelism: shard the store and the arena, validated
+        # before any dispatch; the runtime carries the TP context.
+        self.mesh = mesh
+        self._tp: Optional[tp_serve.TPConfig] = None
+        if mesh is not None:
+            self._tp = self._init_mesh_placement(mesh)
+            self.rt = dataclasses.replace(self.rt, tp=self._tp)
         self.scheduler = Scheduler(max_batch, policy=scheduler_policy)
         self.stats = EngineStats()
+        # Whether each new decode layout's launches are counted: taken from
+        # the arguments every rank of a mesh receives alike, since the
+        # count runs a decode step (collectives included) on every rank.
+        self._count_layouts = count_dispatches or (
+            telemetry is not None and telemetry.profiler is not None)
+        if mesh is not None and mesh.rank != 0:
+            telemetry = None                 # rank 0 records for the mesh
         # Every hook below is guarded by ``telemetry is not None``: without
         # it the engine takes no hook and makes no device sync.
         self.telemetry = telemetry
@@ -507,6 +542,79 @@ class ServeEngine(_DeferredErrors):
                                                        np.float32)
         self._topk: npt.NDArray[np.int32] = np.zeros((max_batch,), np.int32)
 
+    # --------------------------------------------------------------- mesh TP
+    def _init_mesh_placement(self, mesh: Any) -> tp_serve.TPConfig:
+        """Validate the mesh against the model, derive the TP context, and
+        keep this rank's shard of the prepared store and of the arena.
+
+        Every sharded weight is N-sharded on its last axis; the KV arena
+        shards over KV heads when they divide, else (MQA ``num_kv_heads ==
+        1``) stays replicated with only query heads sharded.  A
+        non-dividing axis raises here, at construction."""
+        n = mesh.n
+        cfg = self.model.cfg
+        if cfg.num_heads and cfg.num_heads % n != 0:
+            raise ValueError(
+                f"serve TP: num_heads={cfg.num_heads} does not divide "
+                f"across {n} devices")
+        kv_shards = bool(cfg.num_kv_heads) and cfg.num_kv_heads % n == 0
+        if cfg.num_kv_heads and not kv_shards and cfg.num_kv_heads != 1:
+            raise ValueError(
+                f"serve TP: num_kv_heads={cfg.num_kv_heads} neither "
+                f"divides across {n} devices nor is 1 (the replicated-MQA "
+                "fallback)")
+        if not _params_prepared(self.params):
+            raise ValueError("serve TP shards the prepared plane store; a "
+                             "mesh needs an integer backend")
+        self._p_specs = sharding_rules.serve_tp_param_specs(
+            self.params, n=n, kv_shards=kv_shards)
+        self._c_specs = sharding_rules.serve_tp_cache_specs(
+            self.arena.caches, n=n, kv_shards=kv_shards)
+        self.params = sharding_rules.shard_tree(
+            self.params, self._p_specs, n=n, rank=mesh.rank)
+        self.arena.caches = sharding_rules.shard_tree(
+            self.arena.caches, self._c_specs, n=n, rank=mesh.rank)
+        return tp_serve.TPConfig(n=n, rank=mesh.rank, kv_shards=kv_shards,
+                                 group=mesh.group)
+
+    def _gather_shard(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """One arena field of a slot, whole: its KV-head shards gathered
+        from every rank (a snapshot holds the unsharded engine's bytes)."""
+        dim = self._c_specs[path]
+        if dim is None:
+            return t
+        return tp_serve.all_gather_tiled(t, dim, self._tp.group)
+
+    def _keep_shard(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's KV-head slice of one whole arena field of a slot."""
+        return sharding_rules.shard(t, self._c_specs[path], n=self._tp.n,
+                                    rank=self.mesh.rank)
+
+    def _shard_spilled(self, path: str, arr: np.ndarray) -> np.ndarray:
+        """``checkpoint.restore``'s ``sharding_fn``: this rank's slice of
+        one leaf of a spilled snapshot (stacked over the periods)."""
+        dim = sharding_rules.serve_tp_cache_spec(
+            path, arr, n=self._tp.n, kv_shards=self._tp.kv_shards)
+        if dim is None:
+            return arr
+        return np.split(arr, self._tp.n, axis=dim)[self.mesh.rank]
+
+    def _spill_target(self) -> Any:
+        """The shapes and dtypes of a spilled snapshot: the unsharded
+        engine's, whose bytes a mesh engine's spill files hold."""
+        tmpl = slots_lib.spill_template(self.arena.caches)
+        if self._tp is None:
+            return tmpl
+        for pos, fields in tmpl.items():
+            for f, t in fields.items():
+                dim = self._c_specs[f"0.{pos}.{f}"]
+                if dim is not None:
+                    shape = list(t.shape)
+                    shape[dim + 1] *= self._tp.n      # + the period axis
+                    fields[f] = torch.empty(shape, dtype=t.dtype,
+                                            device="meta")
+        return tmpl
+
     # ----------------------------------------------------- dispatch counting
     @torch.inference_mode()
     def decode_dispatch_count(self, *, groups: Optional[GroupLayout] = None,
@@ -514,7 +622,12 @@ class ServeEngine(_DeferredErrors):
         """Kernel launches of ONE decode step at a group layout (``groups``)
         or one tier: the ``_build.LAUNCHES`` delta of a step run with every
         slot inactive, which writes no cache and emits nothing.  0 on the
-        plain backend and on the CPU (no kernel launches there)."""
+        plain backend and on the CPU (no kernel launches there).
+
+        On a mesh engine (every rank calls it: the step gathers) it is the
+        unsharded graph's count, as in the reference: this rank's launches
+        plus the act-quant launch the unsharded graph makes where each
+        gathered projection quantizes with the shared range instead."""
         if groups is not None:
             rt = self.rt.for_groups(groups, torch.arange(
                 self.max_batch, dtype=torch.int64, device=self.device))
@@ -522,13 +635,21 @@ class ServeEngine(_DeferredErrors):
             rt = self.rt.for_tier(tier)
         else:
             rt = self.rt
-        before = sum(_build.LAUNCHES.values())
+        before = self._launches()
         self.model.decode_step(
             self.params, rt, self.arena.caches,
             tokens=torch.from_numpy(self._tok[:, None]).to(self.device),
             active=torch.zeros((self.max_batch,), dtype=torch.bool,
                                device=self.device))
-        return sum(_build.LAUNCHES.values()) - before
+        return self._launches() - before
+
+    def _launches(self) -> int:
+        """Kernel launches so far, with a mesh engine's stand-in
+        quantizations counted as the launches they replace."""
+        n = sum(_build.LAUNCHES.values())
+        if self._tp is not None:
+            n += tp_serve.STANDIN_QUANTS["act_quant"]
+        return n
 
     # ------------------------------------------------------------------ clock
     @property
@@ -589,6 +710,11 @@ class ServeEngine(_DeferredErrors):
                     f"request {request.uid}: speculative decoding needs "
                     "mixed_tiers=True (draft rows are retagged in the "
                     "decode group layout)")
+            if self.mesh is not None:
+                raise ValueError(
+                    f"request {request.uid}: speculative decoding is not "
+                    "supported on a mesh engine; submit without spec or "
+                    "use an unsharded engine")
         self._seen_uids.add(request.uid)
         # Handle and scheduler share the SAME (normalized) Request, so a
         # QUEUED set_tier re-tags the queue entry in place.
@@ -714,7 +840,9 @@ class ServeEngine(_DeferredErrors):
         slot = handle.slot
         assert slot is not None
         state = self.scheduler.evict(slot)
-        cache = slots_lib.slot_snapshot(self.arena.caches, slot)
+        cache = slots_lib.slot_snapshot(
+            self.arena.caches, slot,
+            gather=self._gather_shard if self.mesh is not None else None)
         sus = SuspendedState(
             request=state.request, tokens=list(state.tokens),
             remaining=int(state.remaining), last_token=int(self._tok[slot]),
@@ -788,8 +916,13 @@ class ServeEngine(_DeferredErrors):
         """Prefill-free re-admission: write the snapshot into the (possibly
         different) slot and restore the host decode state where the
         preemption cut it."""
-        cache = sus.cache if sus.cache is not None else self._unspill(sus)
-        slots_lib.slot_restore(self.arena.caches, cache, slot)
+        if sus.cache is not None:      # whole: keep this rank's slice
+            slots_lib.slot_restore(
+                self.arena.caches, sus.cache, slot,
+                scatter=self._keep_shard if self.mesh is not None else None)
+        else:                          # read back as this rank's slice
+            slots_lib.slot_restore(self.arena.caches, self._unspill(sus),
+                                   slot)
         self.arena.tiers[slot] = req.tier
         state = self.scheduler.slots[slot]
         assert state is not None
@@ -812,38 +945,51 @@ class ServeEngine(_DeferredErrors):
         """Write a snapshot through the checkpoint module, in the
         reference's layout (``slots.spill_tree``: either package restores
         it), and drop it from host memory.  ``keep=0``: live spills are never collected;
-        :meth:`_unspill` removes each step dir as its request resumes."""
+        :meth:`_unspill` removes each step dir as its request resumes.  On a
+        mesh, rank 0 writes (its snapshot is the whole one every rank
+        holds) and every rank reads."""
         assert self._spill_dir is not None
-        if self._spiller is None:
-            self._spiller = checkpoint_lib.AsyncCheckpointer(
-                self._spill_dir, keep=0)
         step = self._spill_counter
         self._spill_counter += 1
-        self._spiller.save(step, slots_lib.spill_tree(sus.cache), extra={
-            "uid": sus.request.uid, "tokens": sus.tokens,
-            "remaining": sus.remaining, "last_token": sus.last_token,
-            "tier": sus.request.tier})
+        if self.mesh is None or self.mesh.rank == 0:
+            if self._spiller is None:
+                self._spiller = checkpoint_lib.AsyncCheckpointer(
+                    self._spill_dir, keep=0)
+            self._spiller.save(step, slots_lib.spill_tree(sus.cache), extra={
+                "uid": sus.request.uid, "tokens": sus.tokens,
+                "remaining": sus.remaining, "last_token": sus.last_token,
+                "tier": sus.request.tier})
         self.stats.spill_bytes += sus.nbytes
         return dataclasses.replace(sus, cache=None, spill_step=step)
 
     def _unspill(self, sus: SuspendedState) -> Any:
         """Read a spilled snapshot back (waiting for the writer) and delete
-        its step dir."""
-        assert self._spiller is not None and sus.spill_step is not None \
-            and self._spill_dir is not None
-        self._spiller.wait()
+        its step dir.  On a mesh every rank reads its own slice of the
+        file rank 0 wrote (``checkpoint.restore``'s ``sharding_fn``),
+        between barriers."""
+        assert sus.spill_step is not None and self._spill_dir is not None
+        if self._spiller is not None:
+            self._spiller.wait()
+        if self.mesh is not None:
+            self.mesh.barrier()              # the file is complete
         tree, _ = checkpoint_lib.restore(
-            self._spill_dir, sus.spill_step,
-            target=slots_lib.spill_template(self.arena.caches), device="cpu")
-        checkpoint_lib.remove(self._spill_dir, sus.spill_step)
+            self._spill_dir, sus.spill_step, target=self._spill_target(),
+            device="cpu",
+            sharding_fn=self._shard_spilled if self.mesh is not None
+            else None)
+        if self.mesh is not None:
+            self.mesh.barrier()              # every rank has read it
+        if self._spiller is not None:
+            checkpoint_lib.remove(self._spill_dir, sus.spill_step)
         return slots_lib.unspill_tree(tree)
 
     def _drop_suspended(self, uid: int) -> None:
         """Discard a suspension's snapshot (its spill dir too) and its
         policy entry."""
         sus = self._suspended.pop(uid, None)
-        if sus is not None and sus.spill_step is not None:
-            assert self._spiller is not None and self._spill_dir is not None
+        if sus is not None and sus.spill_step is not None \
+                and self._spiller is not None:   # the writing rank
+            assert self._spill_dir is not None
             self._spiller.wait()
             checkpoint_lib.remove(self._spill_dir, sus.spill_step)
         pol = self.scheduler.policy
@@ -1158,9 +1304,8 @@ class ServeEngine(_DeferredErrors):
         groups: Optional[GroupLayout] = rt.groups if (
             self.schedule is not None and self.mixed_tiers) else None
         if groups is not None:
-            want_counts = self.count_dispatches or (
-                tele is not None and tele.profiler is not None)
-            if want_counts and groups not in self.stats.decode_dispatches:
+            if self._count_layouts \
+                    and groups not in self.stats.decode_dispatches:
                 self.stats.decode_dispatches[groups] = \
                     self.decode_dispatch_count(groups=groups)
         t1 = tele.dispatch_start(self.device) if tele is not None else 0.0

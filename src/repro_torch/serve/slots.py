@@ -12,11 +12,14 @@ into a slot and ``slot_reset`` zeroes one slot's state, lengths included.
 ``slot_snapshot`` copies one slot's state to the host (the preemption
 snapshot: a COPY, since a view would change when the slot is reused) and
 ``slot_restore`` writes it into any slot; ``spill_tree`` gives a snapshot
-the reference's on-disk layout.  In the mixed per-slot KV arena
-``fill_kv_tier`` sets an admitted slot's tier code and ``migrate_kv_tier``
-requantizes a live slot at a new one; both, like ``truncate_kv_lengths``,
-skip SSM caches.  The host-side ``SlotArena.tiers`` vector records which
-precision tier holds each slot.
+the reference's on-disk layout.  On a tensor-parallel engine the arena
+holds this rank's KV heads: ``slot_snapshot(gather=)`` gathers each field
+whole before the host copy and ``slot_restore(scatter=)`` keeps this
+rank's slice, each naming a field by its arena path (``0.pos0.k``).
+In the mixed per-slot KV arena ``fill_kv_tier`` sets an admitted slot's
+tier code and ``migrate_kv_tier`` requantizes a live slot at a new one;
+both, like ``truncate_kv_lengths``, skip SSM caches.  The host-side
+``SlotArena.tiers`` vector records which precision tier holds each slot.
 
 Speculative rollback.  The reference merges the whole pre-draft arena back
 into the speculative slots (``merge_slots``).  Here the arena is written in
@@ -35,7 +38,7 @@ verify starts from it and returns its states per step, and
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -47,6 +50,8 @@ Cache = Union[KVCache, SSMCache]
 Caches = List[Dict[str, Cache]]
 # One slot's state: per period, per position, the cache tensors by name.
 Snapshot = List[Dict[str, Dict[str, torch.Tensor]]]
+# (arena path of a field, e.g. "0.pos0.k"; one slot's tensor) -> tensor
+FieldMap = Callable[[str, torch.Tensor], torch.Tensor]
 
 
 def slot_view(caches: Caches, slot: int) -> Caches:
@@ -89,14 +94,20 @@ def slot_template(caches: Caches) -> Snapshot:
             for layer in caches]
 
 
-def slot_snapshot(caches: Caches, slot: int) -> Snapshot:
+def slot_snapshot(caches: Caches, slot: int,
+                  gather: Optional[FieldMap] = None) -> Snapshot:
     """A host copy of one slot's whole state: K/V lanes, scale rows, the
     length and (mixed arena) the tier code of every attention layer, the
     conv window and SSD state of every Mamba layer.  The copies are
-    complete when this returns."""
-    return [{pos: {f: t.to("cpu", copy=True)
+    complete when this returns.  ``gather`` (a mesh engine's) turns this
+    rank's part of a field into the whole field first."""
+    def copy(path: str, t: torch.Tensor) -> torch.Tensor:
+        if gather is not None:
+            t = gather(path, t)
+        return t.to("cpu", copy=True)
+    return [{pos: {f: copy(f"{i}.{pos}.{f}", t)
                    for f, t in _slot_fields(c, slot).items()}
-             for pos, c in layer.items()} for layer in caches]
+             for pos, c in layer.items()} for i, layer in enumerate(caches)]
 
 
 def snapshot_nbytes(snap: Snapshot) -> int:
@@ -105,12 +116,18 @@ def snapshot_nbytes(snap: Snapshot) -> int:
                for t in fields.values())
 
 
-def slot_restore(caches: Caches, snap: Snapshot, slot: int) -> Caches:
-    """Write a snapshot into slot ``slot`` (any slot), in place."""
-    for layer, sub in zip(caches, snap, strict=True):
+def slot_restore(caches: Caches, snap: Snapshot, slot: int,
+                 scatter: Optional[FieldMap] = None) -> Caches:
+    """Write a snapshot into slot ``slot`` (any slot), in place;
+    ``scatter`` (a mesh engine's) cuts each whole field to this rank's
+    part first."""
+    for i, (layer, sub) in enumerate(zip(caches, snap, strict=True)):
         for pos, c in layer.items():
             for f, dst in _slot_fields(c, slot).items():
-                dst.copy_(sub[pos][f])
+                src = sub[pos][f]
+                if scatter is not None:
+                    src = scatter(f"{i}.{pos}.{f}", src)
+                dst.copy_(src)
     return caches
 
 

@@ -12,7 +12,9 @@ The package is a sensor layer over the engines of
   :class:`~repro_torch.telemetry.profile.DeviceProfiler` does);
 * **bitwise stability when on** — every hook observes after the fact;
   enabling telemetry (even with device profiling) leaves every stream
-  token-identical.
+  token-identical, on a tensor-parallel mesh too
+  (``tests/test_torch_tp.py``), where rank 0's engine records for the
+  mesh and the other ranks' hold no telemetry.
 
 Composition (one object, four concerns):
 

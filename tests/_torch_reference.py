@@ -10,6 +10,7 @@ source casts; with the flag the jitted reference computes exactly its
 source's arithmetic (test_torch_model.py shows the default-flag gap).  A
 subprocess keeps the flag away from every other test in the worker.
 """
+import dataclasses
 import hashlib
 import json
 import os
@@ -34,50 +35,67 @@ ENGINE_KW = dict(max_batch=4, max_len=64, decode_chunk=8)
 # prints the streams of every run and a checksum of the weights it served
 # (the parent makes the same weights from the same key).
 REFERENCE = r"""
-import hashlib, json, sys
+import dataclasses, hashlib, json, sys
 import jax, numpy as np
 from repro.configs import reduced_config
 from repro.core.policy import uniform_schedule
 from repro.models.layers import Runtime
 from repro.models.transformer import LM
 from repro.serve.engine import Request, ServeEngine
+from repro.serve.handle import RequestStatus
 from repro.spec import SamplingParams, SpecConfig
 spec = json.loads(sys.argv[1])
 models, checksums = {}, {}
 
 
-def model_of(arch):
-    if arch not in models:
-        model = LM(reduced_config(arch))
+def model_of(arch, over):
+    key = arch + (" " + json.dumps(over, sort_keys=True) if over else "")
+    if key not in models:
+        model = LM(dataclasses.replace(reduced_config(arch), **over))
         params = model.init(jax.random.PRNGKey(0))
         h = hashlib.sha1()
         for leaf in jax.tree.leaves(params):
             h.update(np.ascontiguousarray(np.asarray(leaf)).tobytes())
-        models[arch], checksums[arch] = (model, params), h.hexdigest()
-    return models[arch]
+        models[key], checksums[key] = (model, params), h.hexdigest()
+    return models[key]
 
 
-sched = uniform_schedule({t: tuple(b) for t, b in spec["tiers"].items()},
-                         backend="decomposed")
-rt = Runtime(policy=sched.policy_for(), mode="serve", schedule=sched)
+def runtime(kv_tiers):
+    sched = uniform_schedule({t: tuple(b) for t, b in spec["tiers"].items()},
+                             backend="decomposed", kv_tiers=kv_tiers)
+    return Runtime(policy=sched.policy_for(), mode="serve", schedule=sched)
+
+
 runs = []
 for run in spec["runs"]:
     kw = dict(spec["engine"])
-    arch = "qwen3-8b"
+    arch, over, kv_tiers, migrate = "qwen3-8b", {}, None, []
     if isinstance(run, dict):
         kw.update(run.get("engine", {}))
         arch = run.get("arch", arch)
+        over = run.get("cfg", over)
+        kv_tiers = run.get("kv_tiers")
+        migrate = list(run.get("migrate", []))
         run = run["requests"]
-    model, params = model_of(arch)
-    eng = ServeEngine(model, params, rt, packed=spec["packed"], **kw)
-    reqs = [Request(uid=r["uid"], prompt=np.asarray(r["prompt"], np.int32),
-                    max_new_tokens=r["max_new"], tier=r["tier"],
-                    sampling=SamplingParams(*r["sampling"])
-                    if r.get("sampling") else None,
-                    spec=SpecConfig(*r["spec"]) if r.get("spec") else None)
-            for r in run]
-    out = eng.run(reqs)
-    runs.append({str(k): v for k, v in out.items()})
+    model, params = model_of(arch, over)
+    eng = ServeEngine(model, params, runtime(kv_tiers), packed=spec["packed"],
+                      **kw)
+    handles = [eng.submit(Request(
+        uid=r["uid"], prompt=np.asarray(r["prompt"], np.int32),
+        max_new_tokens=r["max_new"], tier=r["tier"],
+        sampling=SamplingParams(*r["sampling"]) if r.get("sampling")
+        else None,
+        spec=SpecConfig(*r["spec"]) if r.get("spec") else None))
+        for r in run]
+    while eng.has_work:
+        eng.step()
+        for m in list(migrate):
+            hd = handles[[h.uid for h in handles].index(m[0])]
+            if hd.status is RequestStatus.RUNNING and len(hd.tokens) >= m[2]:
+                hd.set_tier(m[1])
+                migrate.remove(m)
+    assert not migrate, migrate
+    runs.append({str(h.uid): h.tokens for h in handles})
 print(json.dumps({"checksums": checksums, "runs": runs}))
 """
 
@@ -102,8 +120,12 @@ def reference_runs(engine_kw, runs, *, packed=False):
     one subprocess (a fresh engine per run).  A spec may carry
     ``"sampling": [temperature, top_k, seed]`` and ``"spec": [draft_tier,
     k]``; a run given as ``{"engine": kw, "requests": specs}`` overrides
-    ``engine_kw`` with ``kw``.  Returns ([{uid: tokens} per run], weights
-    checksum)."""
+    ``engine_kw`` with ``kw``, and may set ``"cfg"`` (overrides of the
+    reduced config, e.g. ``{"num_kv_heads": 4}``: weights of their own,
+    checksummed under ``"<arch> <json of cfg>"``), ``"kv_tiers"`` (the
+    schedule's) and ``"migrate"`` (``[uid, tier, after n tokens]``: applied
+    after every step to a RUNNING request that has emitted enough).
+    Returns ([{uid: tokens} per run], weights checksum)."""
     out, checksums = reference_arch_runs(engine_kw, runs, packed=packed)
     return out, checksums["qwen3-8b"]
 
@@ -128,10 +150,11 @@ def reference_arch_runs(engine_kw, runs, *, packed=False):
             ref["checksums"])
 
 
-def reference_weights(arch="qwen3-8b"):
+def reference_weights(arch="qwen3-8b", **cfg):
     """(reference model, its PRNGKey(0) params, checksum, the params
-    converted into the port on the CPU) of reduced ``arch``."""
-    jm = JLM(jreduced(arch))
+    converted into the port on the CPU) of reduced ``arch`` (with the
+    config overrides ``cfg``)."""
+    jm = JLM(dataclasses.replace(jreduced(arch), **cfg))
     jp = jm.init(jax.random.PRNGKey(0))
     return jm, jp, _checksum(jp), convert_params(
         jax.tree.map(np.asarray, jp), device="cpu")

@@ -63,6 +63,16 @@ def _calib():
                                   seq=8, seed=3)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """These CPU ops are small: one intra-op thread, so that parallel test
+    workers do not oversubscribe the cores (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def weights():
     """(reference model, reference params, port model, converted params)."""

@@ -832,3 +832,22 @@ def test_train_cli_auto_resume_on_cuda(gen, tmp_path):
     assert first["params"]["embed"]["emb"].device.type == "cuda"
     for a, b in zip(tree_leaves(first), tree_leaves(again)):
         assert torch.equal(a, b)
+
+
+def test_tp_mesh_equals_unsharded(gen, tmp_path):
+    """Two ranks sharing this card over gloo serve the reduced qwen3-8b (4
+    KV heads: the arena shards) at tiers 8/8 4/4 2/2 with KV tiers and one
+    migration: every rank's streams equal the unsharded engine's."""
+    import dataclasses
+
+    import _torch_tp_ranks as ranks
+    from repro_torch.launch.mesh import spawn_ranks
+    cfg = dataclasses.replace(reduced_config("qwen3-8b"), num_kv_heads=4)
+    model = LM(cfg)
+    params = model.init(gen, device="cuda")
+    path = tmp_path / "kv4.pt"
+    torch.save((cfg, params), path)
+    want = ranks.serve(model, params, backend="cuda", migrate=ranks.MIGRATE,
+                       device="cuda")[0]
+    got = spawn_ranks(2, ranks.gpu_rank, str(path), device="cuda")
+    assert got == [want, want]

@@ -15,6 +15,7 @@ from _torch_reference import (ENGINE_KW, TIERS, reference_streams,
 from repro_torch.configs import reduced_config
 from repro_torch.core.policy import uniform_policy, uniform_schedule
 from repro_torch.launch import serve as serve_cli
+from repro_torch.launch.mesh import ServeMesh
 from repro_torch.models.layers import Runtime
 from repro_torch.models.transformer import LM
 from repro_torch.serve import engine as engine_mod
@@ -136,8 +137,12 @@ def test_submit_validation_and_unported_features(setup):
     # has no slot to give up.
     with pytest.raises(RuntimeError, match="only RUNNING"):
         eng.preempt(0)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _tiered_engine(model, params, mesh=object())
+    # Tensor-parallel serving is served (tests/test_torch_tp.py); a mesh
+    # whose width does not divide the heads is refused at construction.
+    with pytest.raises(ValueError, match="does not divide across 3"):
+        _tiered_engine(model, params, mesh=ServeMesh(
+            group=None, n=3, rank=0, device=torch.device("cpu"),
+            backend="gloo"))
     kv = uniform_schedule(TIERS, backend="cuda",
                           kv_tiers={"8/8": None, "4/4": 8, "2/2": 8})
     mixed = ServeEngine(model, params, Runtime(policy=kv.policy_for(),

@@ -60,6 +60,16 @@ SPEC_MASK = (True, True, False)             # slots 0 and 1 speculate
 DRAFT_TIER = "2/2"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """These CPU ops are small: one intra-op thread, so that parallel test
+    workers do not oversubscribe the cores (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _layout(tiers):
     """(groups, perm) of a slot-tier vector, as ServeEngine._group_layout."""
     rank = {t: i for i, t in enumerate(TIERS)}
