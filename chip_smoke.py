@@ -18,11 +18,12 @@ Phases, in order (any failure exits non-zero and prints no result line):
 2. parity   each kernel against its plain PyTorch version, bit-equal,
             tolerance 0.  Kernels 1 and 2: bf16 and f32 input, without and
             with a row gather (a shuffle with a repeated row), M in {1, 5,
-            8, 64}, K in {96, 2048, 4096, 4100, 5120, 8192, 12288},
-            widths 2-8 signed and 8
-            unsigned (kernel 1) and per-row qmax 127/7/1 (kernel 2), with
-            zero rows and rows on .5 boundaries after the divide, and two
-            views (rows apart, a misaligned base).  The GEMMs at the
+            8, 64}, K in {96, 1024, 2048, 4096, 4100, 5120, 8192,
+            12288}, widths 2-8 signed and 8 unsigned (kernel 1) and per-row
+            qmax 127/7/1 (kernel 2), with zero rows and rows on .5
+            boundaries after the divide, two views (rows apart, a
+            misaligned base), and phase 4i's f32 K-shards (M 64, K 2048 and
+            1024, rows 4096 apart).  The GEMMs at the
             serving shapes (M in {8, 64}; K=4096 -> N in {4096, 1024,
             12288, 152064}; K=12288 -> N=4096; phase 4e's
             ``ARCH_GEMM_SHAPES``) and one ragged shape (M=5,
@@ -232,6 +233,45 @@ Phases, in order (any failure exits non-zero and prints no result line):
             (temperature 0.8, top-k 40) and a ``Telemetry(profile=True)``
             run (rank 0 records) each equal the unsharded engine's run on
             the same weights.  A rank's failure fails the phase.
+4i. dist    the distributed training blocks over torch.distributed: 4
+            ranks from ``launch.mesh.spawn_ranks`` share this card over
+            gloo (every collective stages through host memory), on the
+            training meshes of ``launch.mesh.make_mesh``.  (a)
+            ``tp_matmul.tp_mlp_block`` at qwen3-8b's MLP widths (d 4096, f
+            12288, seeded bf16 weights, 64 rows of f32 x) on a (4,)
+            "model" mesh and on the 2-rank "model" lines of a (2, 2) mesh:
+            the wire's codes and scales (kernel 1 on each K-shard, K 1024
+            and 2048) must equal the plain quantizer's bit for bit, y must
+            be within the reference test's 5 % of the f32 MLP and within
+            ``DIST_TP_CPU_ULPS`` bf16 ulps of the same call on the CPU, and
+            the bytes gathered and reduced per token must equal
+            ``collective_bytes_per_token``.  (c) ``pipeline.run_pipeline``
+            over a (4,) "stage" mesh, each stage one full-width qwen3-8b
+            decoder layer from the w8a8 superplane store (kernels 1 and
+            3), 6 microbatches of [2, 128, 4096] bf16: equal bit for bit
+            to rank 0's sequential run of the same layers one microbatch at
+            a time; the launches of (a) and (c) on all ranks are the kernel
+            line's ``dist`` counts (kernels 1 and 3 only).  (b)
+            compressed data-parallel gradients on the 2-rank "dp" line of a
+            (2, 2) mesh: full-width qwen3-8b cut to one layer, each rank's
+            half-batch gradient (``train.step.value_and_grad``, SyntheticLM,
+            w4a8 ``fake_quant``; the ranks take turns), then
+            ``compressed_psum_tree`` at bits 8 and 2, 3 rounds each with
+            error feedback: the means and residuals of one projection and
+            one norm equal the same calls on the CPU bit for bit every
+            round, the embedding's in each width's first round (a host
+            replay of its 0.62 G entries takes 10-18 s a round), the first
+            8-bit mean is within 5 % of the f32 mean; prints the bytes
+            handed to the all-reduces.  (d) the
+            params and AdamW state of phase 4g's model (full width, 4
+            layers) under the (2, 2) ("data", "model") training rules:
+            each rank builds the whole in turn and keeps its blocks
+            (``shard_tree``), holding exactly the rules' reckoning
+            (``block_bytes``); ``gather_tree`` of every leaf's blocks,
+            gathered to rank 0, equals the whole bit for bit.  Prints the
+            per-device parameter bytes of the full qwen3-8b, llama4-scout
+            and grok-1 trees on both production meshes, reckoned from
+            shapes (meta tensors), not measured.
 5. fixed    the quickstart form, --w-bits 4 with the int8 KV cache and
             then the int4 one (--kv-bits 8, 4; LSB-first planes), at full
             width with the depth cut to 4 layers; for each, the ``cuda``
@@ -254,6 +294,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
             shapes: kernel 4 at M = 288 (nine groups of 32, one probe
             group at 1, 2 or 3 planes; K x N 4096 x 12288 and the head)
             and M = 160, kernels 1 and 2 at M = 288, kernel 3 at M = 32.
+            Phase 4i's wire quantizer: kernel 1 on f32 K-shards (K 2048
+            and 1024) of 64 rows 4096 wide, and kernels 1 and 2 at
+            K = 1024.
 
 The script takes no arguments.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the one before it the card's name and
@@ -554,12 +597,13 @@ def _act_rows(m: int, k: int, qmaxes, signed: bool, gen):
 def _act_quant_cases(gen):
     """Kernels 1 and 2's parity inputs: yields (x, perm), ``x`` mapping
     each of kernel 1's widths (bits, signed) and "rows" (kernel 2) to its
-    input.  M in {1, 5, 8, 64}, K in {96, 2048, 4096, 4100, 5120, 8192,
-    12288} (2048, 5120 and 8192: phase 4e's generic path), bf16 and f32,
-    without and with ``perm`` (a shuffle with a repeated row; int32 for
-    bf16, int64 for f32); then at K = 4096 and 12288, M = 8, two views:
-    rows 8 elements apart, and a base one element past a 16-byte
-    boundary (the generic path)."""
+    input.  M in {1, 5, 8, 64}, K in {96, 1024, 2048, 4096, 4100, 5120,
+    8192, 12288} (1024, 2048, 5120 and 8192: the generic path of phases
+    4e and 4i), bf16 and f32, without and with ``perm`` (a shuffle with a
+    repeated row; int32 for bf16, int64 for f32); then at K = 4096 and
+    12288, M = 8, two views: rows 8 elements apart, and a base one element
+    past a 16-byte boundary (the generic path); and phase 4i's K-shards:
+    f32, M = 64, K = 2048 and 1024, rows 4096 apart."""
     import torch
 
     def inputs(m, k, dtype, view=lambda t: t):
@@ -569,7 +613,7 @@ def _act_quant_cases(gen):
         x["rows"] = _act_rows(m, k, ROWS_QMAX, True, gen)
         return {key: view(t.to(dtype)) for key, t in x.items()}
 
-    for k in (96, 2048, 4096, 4100, 5120, 8192, 12288):
+    for k in (96, 1024, 2048, 4096, 4100, 5120, 8192, 12288):
         for m in (1, 5, 8, 64):
             for dtype in (torch.float32, torch.bfloat16):
                 x = inputs(m, k, dtype)
@@ -584,6 +628,11 @@ def _act_quant_cases(gen):
                 [t, t[:, :8]], dim=1)[:, :k]), None
             yield inputs(8, k, dtype, lambda t: torch.cat(
                 [t.new_zeros(1), t.reshape(-1)])[1:].view(8, k)), None
+    # Phase 4i's wire quantizer: f32 rows of 64, rank 1's K-shard of a
+    # 4096-wide row at n = 2 and 4 (rows 4096 apart, the base K in).
+    for k in (2048, 1024):
+        yield inputs(64, k, torch.float32, lambda t: torch.cat(
+            [t, t, t.new_zeros(64, 4096 - 2 * k)], dim=1)[:, k:2 * k]), None
 
 
 def phase_parity() -> dict:
@@ -3379,6 +3428,451 @@ def phase_tp(mixed: dict, card: str) -> dict:
                                         if k != "tokens"} for f in full]}
 
 
+# ------------------------------------------------------------ phase 4i
+DIST_RANKS = 4
+# (a) qwen3-8b's MLP widths, 64 rows of f32 activations.
+DIST_TP = dict(d=4096, f=12288, rows=64)
+# (a) the card's y against the same call on the CPU: bf16 GEMMs that sum
+# in another order on each device, at most this many bf16 ulps of the
+# largest |y| apart.
+DIST_TP_CPU_ULPS = 4
+# (b) full-width qwen3-8b cut to one layer; 2 data-parallel ranks, each
+# half of a batch of 8 x 256 tokens at w4a8 fake_quant; 3 rounds at each
+# width.  The leaves also reduced on the CPU: a projection and a norm
+# every round; the embedding (0.62 G entries, 10-18 s a round on the
+# host) in each width's first round.
+DIST_DP = dict(layers=1, seq=256, batch=8, rounds=3)
+DIST_DP_CHECKED = ("layers.0.pos0.attn.q_proj.w",
+                   "layers.0.pos0.mixer_norm.g")
+DIST_DP_FIRST_ROUND = ("embed.emb",)
+# (c) one full-width decoder layer a stage, 6 microbatches [2, 128, d].
+DIST_PIPE = dict(micro=6, mb=(2, 128))
+# (d) phase 4g's model: full width, 4 layers; and the full trees reckoned
+# on the production meshes.
+DIST_FSDP_LAYERS = 4
+DIST_PROD_ARCHS = ("qwen3-8b", "llama4-scout-17b-a16e", "grok-1-314b")
+DIST_USED = ("act_quant", "bitserial_matmul")
+
+
+def _dist_cfg(layers: int):
+    """qwen3-8b at full width, ``layers`` deep."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3-8b"), num_layers=layers)
+
+
+def _rank_log(msg: str) -> None:
+    print(f"[dist] {msg}", file=sys.stderr, flush=True)
+
+
+def _dist_tp(mesh) -> dict:
+    """(a) ``tp_mlp_block`` over the mesh's "model" lines: the wire against
+    the plain quantizer, y against the f32 MLP and against the same call on
+    the CPU (gloo moves CPU tensors over the same groups)."""
+    import torch
+
+    from repro_torch.distributed import tp_matmul
+    from repro_torch.kernels import ref
+    d, f, rows = DIST_TP["d"], DIST_TP["f"], DIST_TP["rows"]
+    dev, n = mesh.device, mesh.axis_size("model")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    x = torch.randn((rows, d), generator=gen, device=dev)
+    w_up = (torch.randn((d, f), generator=gen, device=dev)
+            / math.sqrt(d)).to(torch.bfloat16)
+    w_down = (torch.randn((f, d), generator=gen, device=dev)
+              / math.sqrt(f)).to(torch.bfloat16)
+    wire: dict = {}
+    y = tp_matmul.tp_mlp_block(mesh, x, w_up, w_down, wire=wire)
+    k = d // n
+    plain = [ref.act_quant_ref(x[:, r * k:(r + 1) * k]) for r in range(n)]
+    codes = torch.cat([q for q, _ in plain], -1)
+    scales = torch.cat([s for _, s in plain], -1).to(torch.bfloat16)
+    want = tp_matmul.gelu(x @ w_up.float()) @ w_down.float()
+    cpu_wire: dict = {}
+    y_cpu = tp_matmul.tp_mlp_block(mesh, x.cpu(), w_up.cpu(), w_down.cpu(),
+                                   wire=cpu_wire)
+    ulp = 2.0 ** (math.floor(math.log2(y_cpu.float().abs().max().item()))
+                  - 7)
+    diff = (y.cpu().float() - y_cpu.float()).abs()
+    est = tp_matmul.collective_bytes_per_token(d, f, n)
+    return {
+        "n": n, "wire_equal_plain": torch.equal(wire["codes"], codes)
+        and torch.equal(wire["scales"], scales),
+        "cpu_wire_equal": torch.equal(cpu_wire["codes"], codes.cpu())
+        and torch.equal(cpu_wire["scales"], scales.cpu()),
+        "rel_f32": ((y.float() - want).abs().max()
+                    / want.abs().max()).item(),
+        "finite": bool(torch.isfinite(y).all()),
+        "cpu_max_abs": diff.max().item(), "cpu_ulp": ulp,
+        "cpu_differing": (diff > 0).float().mean().item(),
+        "gathered_per_token": (wire["codes"].numel()
+                               + 2 * wire["scales"].numel()) / rows,
+        "reduced_per_token": 2 * wire["partial"].numel() / rows,
+        "estimate": est}
+
+
+def _dist_pipe(mesh) -> dict:
+    """(c) ``run_pipeline`` over the 4 stage ranks, each stage one
+    full-width decoder layer from the superplane store at w8a8 (kernels 1
+    and 3); rank 0 then runs the four layers on one microbatch at a time.
+    Returns the launches of (a) and the pipeline too."""
+    import torch
+
+    from repro_torch.core.policy import uniform_policy
+    from repro_torch.distributed import pipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import in_turn
+    from repro_torch.models.layers import Runtime
+    stages = mesh.axis_size("stage")
+    policy = uniform_policy(8, 8, backend="cuda")
+
+    def build():
+        # The layers only: the embedding and the head go before the next
+        # rank builds.
+        cfg, model, params = _build_model(stages, policy, superplane=True,
+                                          seed=3)
+        layers = params["layers"]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return cfg, model, layers
+    cfg, model, layers = in_turn(mesh, build)
+    rt = Runtime(policy=policy)
+
+    def stage_fn(period, x):
+        return model._stack({"layers": [period]}, x, rt)[0]
+    gen = torch.Generator(device=mesh.device)
+    gen.manual_seed(9)
+    xs = torch.randn((DIST_PIPE["micro"], *DIST_PIPE["mb"], cfg.d_model),
+                     generator=gen, device=mesh.device).to(torch.bfloat16)
+    sync()
+    t0 = time.perf_counter()
+    out = pipeline.run_pipeline(mesh, stage_fn, layers, xs)
+    sync()
+    res = {"seconds": time.perf_counter() - t0,
+           "launches": dict(_build.LAUNCHES),
+           "finite": bool(torch.isfinite(out).all())}
+    if mesh.rank == 0:
+        seq = []
+        for mb in xs:
+            for period in layers:
+                mb = stage_fn(period, mb)
+            seq.append(mb)
+        res["equal_sequential"] = torch.equal(out, torch.stack(seq))
+    return res
+
+
+def _dist_dp(mesh) -> dict:
+    """(b) compressed data-parallel gradients on the "dp" line of ranks 0
+    and 1 (the line of rep 0; ranks 2 and 3 only wait): each computes its
+    half-batch gradient in turn, then ``compressed_psum_tree`` runs at
+    bits 8 and 2 for 3 rounds with error feedback, the checked leaves
+    also on the CPU."""
+    import torch
+
+    from repro_torch.core.policy import uniform_policy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import comm, compression
+    from repro_torch.distributed.sharding_rules import leaf_paths
+    from repro_torch.launch.mesh import in_turn
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.step import make_loss_fn, value_and_grad
+    dev = mesh.device
+    working = mesh.index("rep") == 0
+
+    def grads():
+        if not working:
+            return None
+        cfg = _dist_cfg(DIST_DP["layers"])
+        model = LM(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(4)
+        params = model.init(gen, device=dev)
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=DIST_DP["seq"],
+                                      global_batch=DIST_DP["batch"]))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(
+            0, shard=mesh.index("dp"), num_shards=2).items()}
+        rt = Runtime(policy=uniform_policy(4, 8, backend="fake_quant"))
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        metrics, g = value_and_grad(make_loss_fn(model, rt), params, batch)
+        sync()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return g, float(metrics["loss"]), secs, peak
+    turn = in_turn(mesh, grads)
+    if not working:
+        return {}
+    g, loss, grad_s, peak = turn
+    group = mesh.group("dp")
+    leaves = leaf_paths(g)
+    res = {"loss": loss, "grad_s": grad_s, "grad_peak_gb": peak,
+           "params": sum(t.numel() for t in leaves.values()), "bits": {}}
+    for bits in (8, 2):
+        err = compression.init_error_feedback(g)
+        checked = {p: leaves[p].cpu()
+                   for p in DIST_DP_FIRST_ROUND + DIST_DP_CHECKED}
+        cpu_err = compression.init_error_feedback(checked)
+        rounds = []
+        for i in range(DIST_DP["rounds"]):
+            compression.reset_wire_bytes()
+            sync()
+            t0 = time.perf_counter()
+            mean, err = compression.compressed_psum_tree(
+                g, err, mesh=mesh, axis_name="dp", bits=bits)
+            sync()
+            rec = {"seconds": time.perf_counter() - t0,
+                   "wire": dict(compression.WIRE_BYTES)}
+            t0 = time.perf_counter()
+            cpu_mean, cpu_err = compression.compressed_psum_tree(
+                checked, cpu_err, mesh=mesh, axis_name="dp", bits=bits)
+            means, errs = leaf_paths(mean), leaf_paths(err)
+            rec["cpu_equal"] = sorted(
+                p for p in checked if torch.equal(means[p].cpu(), cpu_mean[p])
+                and torch.equal(errs[p].cpu(), cpu_err[p]))
+            rec["cpu_seconds"] = time.perf_counter() - t0
+            if i == 0:
+                # The embedding's replay ends with its first round.
+                checked = {p: checked[p] for p in DIST_DP_CHECKED}
+                cpu_err = {p: cpu_err[p] for p in DIST_DP_CHECKED}
+            if bits == 8 and i == 0:
+                # The f32 mean: each rank's bf16 gradient gathered, summed
+                # in f32 (as an f32 all-reduce of two ranks sums), halved.
+                rel, t0 = 0.0, time.perf_counter()
+                for p, t in leaves.items():
+                    both = comm.all_gather_tiled(t[None], 0, group)
+                    full = (both[0].float() + both[1].float()) / 2
+                    rel = max(rel, ((means[p] - full).abs().max()
+                                    / full.abs().max()).item())
+                    del both, full
+                rec["rel_f32"] = rel
+                rec["f32_seconds"] = time.perf_counter() - t0
+            rec["finite"] = all(bool(torch.isfinite(t).all())
+                                for t in means.values())
+            rounds.append(rec)
+            del mean, means, errs
+            _rank_log(f"rank {mesh.rank} (b) bits {bits} round {i}: {rec}")
+        res["bits"][bits] = rounds
+        del err
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def _dist_fsdp(mesh) -> dict:
+    """(d) the params and AdamW state of phase 4g's model under the (2, 2)
+    FSDP x TP rules: each rank builds the whole in turn and keeps its
+    blocks; then every leaf's blocks are gathered to rank 0, which builds
+    the whole again and holds ``gather_tree`` of them against it."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import sharding_rules as rules
+    from repro_torch.launch.mesh import in_turn
+    from repro_torch.models.transformer import LM
+    from repro_torch.train import optimizer as optim
+    dev = mesh.device
+    model = LM(_dist_cfg(DIST_FSDP_LAYERS))
+
+    def whole():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        params = model.init(gen, device=dev)
+        return {"params": params,
+                "opt": optim.init_state(params, optim.OptConfig())}
+
+    def build():
+        state = whole()
+        specs = rules.tree_shardings(mesh, state)
+        blocks = rules.shard_tree(state, specs, mesh=mesh)
+        reckoned = rules.block_bytes(state, specs, mesh)
+        total = sum(t.numel() * t.element_size()
+                    for t in rules.leaf_paths(state).values())
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return blocks, specs, reckoned, total
+    t0 = time.perf_counter()
+    blocks, specs, reckoned, total = in_turn(mesh, build)
+    held = sum(t.numel() * t.element_size()
+               for t in rules.leaf_paths(blocks).values())
+    ref = rules.leaf_paths(whole()) if mesh.rank == 0 else None
+    differ, sharded = [], 0
+    for path, b in rules.leaf_paths(blocks).items():
+        parts = comm.gather(b, 0, dist.group.WORLD)
+        sharded += any(a is not None for a in specs[path])
+        if ref is not None:
+            got = rules.gather_tree([{"x": p} for p in parts],
+                                    {"x": specs[path]}, mesh)["x"]
+            if not torch.equal(got, ref[path].cpu()):
+                differ.append(path)
+    return {"held": held, "reckoned": reckoned, "whole": total,
+            "leaves": len(specs), "sharded": sharded, "differ": differ,
+            "seconds": time.perf_counter() - t0,
+            "checked": ref is not None}
+
+
+def _dist_rank(rank: int) -> dict:
+    """One rank of phase 4i.  Quiet: the parent prints what the ranks
+    return."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = MIXED_KW["device"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        meshes = {axes: make_mesh(shape, axes, device=dev) for shape, axes in
+                  (((4,), ("model",)), ((2, 2), ("data", "model")),
+                   ((2, 2), ("rep", "dp")), ((4,), ("stage",)))}
+        _build.reset_launches()
+        out = {"tp": [_dist_tp(meshes[("model",)]),
+                      _dist_tp(meshes[("data", "model")])]}
+        _rank_log(f"rank {rank} (a) {out['tp']}")
+        out["pipe"] = _dist_pipe(meshes[("stage",)])
+        _rank_log(f"rank {rank} (c) {out['pipe']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["dp"] = _dist_dp(meshes[("rep", "dp")])
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["fsdp"] = _dist_fsdp(meshes[("data", "model")])
+        _rank_log(f"rank {rank} (d) {out['fsdp']}")
+    return out
+
+
+def _production_bytes() -> dict:
+    """(d) the per-device parameter bytes of full trees on the production
+    meshes: a reckoning from shapes (meta tensors), not a measurement."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding_rules as rules
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.transformer import LM
+    out = {}
+    for arch in DIST_PROD_ARCHS:
+        params = LM(get_config(arch)).init(torch.Generator(), device="meta")
+        total = sum(t.numel() * t.element_size()
+                    for t in rules.leaf_paths(params).values())
+        row = {"whole_bytes": total}
+        for multi in (False, True):
+            mesh = make_production_mesh(multi_pod=multi)
+            row["x".join(map(str, mesh.shape))] = rules.block_bytes(
+                params, rules.tree_shardings(mesh, params), mesh)
+        out[arch] = row
+    return out
+
+
+def phase_dist(card: str) -> dict:
+    """Phase 4i: the distributed training blocks over torch.distributed;
+    see the module docstring."""
+    from repro_torch.launch.mesh import spawn_ranks
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(DIST_RANKS, _dist_rank, device=MIXED_KW["device"])
+    secs = time.perf_counter() - t0
+    # (a)
+    for r, rank in enumerate(ranks):
+        for tp in rank["tp"]:
+            label = f"dist-tp-rank{r}-n{tp['n']}"
+            est = tp["estimate"]
+            if not (tp["wire_equal_plain"] and tp["cpu_wire_equal"]):
+                raise AssertionError(f"{label}: the wire's codes or scales "
+                                     "differ from the plain quantizer's")
+            if not tp["finite"] or not tp["rel_f32"] < 0.05:
+                raise AssertionError(f"{label}: y off the f32 MLP by "
+                                     f"{tp['rel_f32']}")
+            if tp["cpu_max_abs"] > DIST_TP_CPU_ULPS * tp["cpu_ulp"]:
+                raise AssertionError(f"{label}: card against CPU "
+                                     f"{tp['cpu_max_abs']}, over "
+                                     f"{DIST_TP_CPU_ULPS} bf16 ulps")
+            if tp["gathered_per_token"] != est["gather_int8"] or \
+                    tp["reduced_per_token"] != est["reduce_scatter_bf16"]:
+                raise AssertionError(f"{label}: wire bytes {tp} against "
+                                     f"{est}")
+    for tp in ranks[0]["tp"]:
+        log(f"[dist] (a) tp_mlp_block d {DIST_TP['d']} f {DIST_TP['f']}, "
+            f"{DIST_TP['rows']} rows, {tp['n']} ranks: wire codes and "
+            f"scales equal the plain quantizer's; rel to the f32 MLP "
+            f"{tp['rel_f32']:.5f}; card vs CPU max {tp['cpu_max_abs']} "
+            f"({tp['cpu_max_abs'] / tp['cpu_ulp']:.2f} bf16 ulps of max|y|,"
+            f" {100 * tp['cpu_differing']:.2f} % of elements differ); bytes "
+            f"a token gathered {tp['gathered_per_token']:.0f}, reduced "
+            f"{tp['reduced_per_token']:.0f} == collective_bytes_per_token "
+            + json.dumps(tp["estimate"]))
+    # (c)
+    pipe = ranks[0]["pipe"]
+    if not pipe.get("equal_sequential") or not all(
+            r["pipe"]["finite"] for r in ranks):
+        raise AssertionError(f"dist-pipe: the pipeline differs from the "
+                             f"sequential run: {pipe}")
+    launches = {k: sum(r["pipe"]["launches"][k] for r in ranks)
+                for k in KERNELS}
+    _check_launches("dist", launches, used=DIST_USED,
+                    unused=[k for k in KERNELS if k not in DIST_USED])
+    log(f"[dist] (c) run_pipeline: {DIST_RANKS} stages of one full-width "
+        f"qwen3-8b layer (w8a8 superplanes), {DIST_PIPE['micro']} "
+        f"microbatches of {DIST_PIPE['mb']}: equal to the sequential run "
+        f"bit for bit; {pipe['seconds']:.2f}s on rank 0; launches of (a) "
+        f"and (c), all ranks: " + json.dumps(launches))
+    # (b)
+    for r, rank in enumerate(ranks[:2]):
+        dp = rank["dp"]
+        for bits, rounds in dp["bits"].items():
+            for i, rec in enumerate(rounds):
+                want = sorted(DIST_DP_CHECKED + (DIST_DP_FIRST_ROUND
+                                                 if i == 0 else ()))
+                if rec["cpu_equal"] != want or not rec["finite"]:
+                    raise AssertionError(f"dist-dp-rank{r}: bits {bits} "
+                                         f"round {i}: {rec}")
+        if not dp["bits"][8][0]["rel_f32"] < 0.05:
+            raise AssertionError(f"dist-dp-rank{r}: 8-bit mean off the f32 "
+                                 f"mean by {dp['bits'][8][0]['rel_f32']}")
+    dp = ranks[0]["dp"]
+    log(f"[dist] (b) qwen3-8b cut to {DIST_DP['layers']} layer, "
+        f"{dp['params']} parameters, 2 ranks: loss {dp['loss']:.4f}, "
+        f"gradient {dp['grad_s']:.2f}s, peak {dp['grad_peak_gb']:.2f} GB; "
+        f"8-bit mean rel to the f32 mean {dp['bits'][8][0]['rel_f32']:.5f};"
+        f" means and residuals equal the CPU's bit for bit: "
+        f"{DIST_DP_CHECKED} every round, {DIST_DP_FIRST_ROUND} in each "
+        "width's first; " + json.dumps(
+            {bits: [{k: rec[k] for k in rec if k.endswith(("seconds", "wire"))}
+                    for rec in rounds]
+             for bits, rounds in dp["bits"].items()}))
+    # (d)
+    for r, rank in enumerate(ranks):
+        fs = rank["fsdp"]
+        if fs["held"] != fs["reckoned"] or fs["differ"]:
+            raise AssertionError(f"dist-fsdp-rank{r}: {fs}")
+    if not ranks[0]["fsdp"]["checked"]:
+        raise AssertionError("dist-fsdp: rank 0 did not check the gather")
+    fs = ranks[0]["fsdp"]
+    prod = _production_bytes()
+    log(f"[dist] (d) qwen3-8b, {DIST_FSDP_LAYERS} layers, params + AdamW "
+        f"state {fs['whole']} B on a (2, 2) data x model mesh: every rank "
+        f"holds its rules' reckoning "
+        f"({[r['fsdp']['held'] for r in ranks]} B), gather_tree of the "
+        f"blocks equals the whole bit for bit ({fs['leaves']} leaves, "
+        f"{fs['sharded']} sharded); {fs['seconds']:.1f}s")
+    log("[dist] (d) per-device parameter bytes on the production meshes "
+        "(a reckoning from shapes, not a measurement): " + json.dumps(prod))
+    log(f"[dist] {secs:.1f}s for the ranks; card {card}")
+    return {"launches": launches, "seconds": secs, "production": prod}
+
+
 def phase_fixed() -> dict:
     from repro_torch.core.policy import uniform_policy
     from repro_torch.models.layers import Runtime
@@ -3651,8 +4145,8 @@ def phase_times() -> dict:
     # and out_proj (K = 4096), llama4's experts (K = 5120, N = 8192; down:
     # K = 8192, N = 5120).  Kernels 1 and 2 at K = 2048, 5120 and 8192
     # take the generic path (no register-resident instantiation there).
-    for m, k in ((8, 2048), (64, 2048), (8, 5120), (64, 5120), (8, 8192),
-                 (64, 8192)):
+    for m, k in ((8, 1024), (64, 1024), (8, 2048), (64, 2048), (8, 5120),
+                 (64, 5120), (8, 8192), (64, 8192)):
         xb = torch.randn((m, k), device="cuda", generator=gen
                          ).to(torch.bfloat16)
         perm = torch.randperm(m, device="cuda", generator=gen)
@@ -3665,6 +4159,15 @@ def phase_times() -> dict:
             lambda: aq.act_quant_rows(xb, qmax, perm=perm),
             lambda: ref.act_quant_rows_ref(xb, qmax, perm=perm),
             2 * m * k + out + m * 12, 0)
+    # Phase 4i's wire quantizer: kernel 1 on rank 1's f32 K-shard of 64
+    # rows 4096 wide (n = 2: K = 2048; n = 4: K = 1024).
+    for k in (2048, 1024):
+        xw = torch.randn((64, 4096), device="cuda", generator=gen)
+        xs_ = xw[:, k:2 * k]
+        row("act_quant", f"M=64 K={k} bits=8 f32 tp shard",
+            lambda xs_=xs_: aq.act_quant(xs_),
+            lambda xs_=xs_: ref.act_quant_ref(xs_),
+            4 * 64 * k + 64 * k + 64 * 4, 0)
     for m in (8, 64):
         for k, n in ARCH_GEMM_SHAPES:
             x, planes = _inputs(m, k, n, gen)
@@ -3808,6 +4311,7 @@ def main() -> int:
                        ("train", lambda: phase_train(out["build"]["card"])),
                        ("tp", lambda: phase_tp(out["mixed"],
                                                out["build"]["card"])),
+                       ("dist", lambda: phase_dist(out["build"]["card"])),
                        ("fixed", phase_fixed), ("times", phase_times)):
         t = time.perf_counter()
         out[phase] = run()
@@ -3834,7 +4338,7 @@ def main() -> int:
                                  for path in ("parity", "mixed", "packed",
                                               "spec", "tiers", "overload",
                                               "archs", "autoprec", "train",
-                                              "tp")}}
+                                              "tp", "dist")}}
         if name.startswith("act_quant"):
             entry["launch_floor_ms"] = out["times"]["launch_floor_ms"]
         if name == "grouped_dequant_matmul":   # its packed mode, on "packed"

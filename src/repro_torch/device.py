@@ -2,7 +2,8 @@
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``, as the tests do).  Asking for CUDA on a machine without
-a GPU raises: nothing falls back to the CPU silently.
+a GPU raises: nothing falls back to the CPU silently.  ``meta`` makes
+trees of shapes only (the sharding rules' reckonings).
 """
 from __future__ import annotations
 
@@ -13,12 +14,13 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``None`` means ``cuda``; a CUDA device without a GPU raises."""
+    """``None`` means ``cuda``; a CUDA device without a GPU raises; cuda,
+    cpu and meta are accepted."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA was requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch versions")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -1,3 +1,6 @@
-"""Tensor-parallel serving over ``torch.distributed`` (port of the serving
-part of ``repro.distributed``): the quantized wire (``tp_serve``) and the
-serve sharding rules (``sharding_rules``)."""
+"""Distribution over ``torch.distributed`` (port of ``repro.distributed``):
+the collectives (``comm``), tensor-parallel serving's quantized wire
+(``tp_serve``), the logical axes and the FSDP x TP and serve sharding
+rules (``sharding``, ``sharding_rules``), the quantized TP MLP block
+(``tp_matmul``), compressed data-parallel gradients (``compression``)
+and the GPipe pipeline (``pipeline``)."""

@@ -27,9 +27,9 @@ The quantization with the shared range is the plain one of
 must come from every rank), with the same ``ref.quant_scale``, IEEE
 divide and round-half-even, so its codes equal the kernels'.
 
-Every gather goes through :func:`all_gather_tiled`.  :data:`WIRE_BYTES`
-counts what this rank hands to the code and output gathers, in the
-accounting of :func:`decode_wire_stats`.
+Every gather goes through ``distributed.comm.all_gather_tiled``.
+:data:`WIRE_BYTES` counts what this rank hands to the code and output
+gathers, in the accounting of :func:`decode_wire_stats`.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed.comm import all_gather_tiled, all_reduce
 from repro_torch.kernels import ops, ref
 
 # Projections that read feature-sharded inputs and therefore need the
@@ -82,41 +83,6 @@ class TPConfig:
         return name.endswith(_GATHERED_SUFFIXES)
 
 
-# ----------------------------------------------------------------- transport
-def _staged(t: torch.Tensor, group: Any) -> bool:
-    return t.is_cuda and dist.get_backend(group) == "gloo"
-
-
-def all_gather_tiled(t: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along ``dim`` in rank order (a tiled
-    all-gather), on ``t``'s device.
-
-    A gloo group moves CPU tensors only, so CUDA tensors are staged
-    through host memory explicitly (``.cpu()``, gather, ``torch.cat``,
-    ``.to(device)``): the transport of ranks that share one card, where
-    NCCL refuses to run.  An NCCL group gathers on the cards (not run
-    yet: ``launch.mesh._backend_for``)."""
-    n = dist.get_world_size(group)
-    if n == 1:
-        return t
-    staged = _staged(t, group)
-    src = (t.cpu() if staged else t).contiguous()
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
-    out = torch.cat(parts, dim=dim)
-    return out.to(t.device) if staged else out
-
-
-def _all_reduce_max(t: torch.Tensor, group: Any) -> torch.Tensor:
-    """Elementwise max of ``t`` over the group (staged like the gathers)."""
-    if dist.get_world_size(group) == 1:
-        return t
-    staged = _staged(t, group)
-    buf = t.cpu() if staged else t.clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
-    return buf.to(t.device) if staged else buf
-
-
 def _sent(key: str, t: torch.Tensor, n: int) -> None:
     WIRE_BYTES[key] += t.numel() * t.element_size() * (n - 1)
 
@@ -130,7 +96,8 @@ def _act_quant_pmax(x: torch.Tensor, bits: int,
     and the replicated f32 scale."""
     qmax = (1 << (bits - 1)) - 1
     xf = x.to(torch.float32)
-    amax = _all_reduce_max(xf.abs().amax(dim=-1, keepdim=True), group)
+    amax = all_reduce(xf.abs().amax(dim=-1, keepdim=True), group,
+                      op=dist.ReduceOp.MAX)
     scale = ref.quant_scale(amax, qmax)
     q = torch.clamp(torch.round(xf / scale), -qmax - 1, qmax)
     return q.to(torch.int8), scale.to(torch.float32)
@@ -157,7 +124,8 @@ def _act_quant_rows_pmax(x: torch.Tensor, row_groups: Any,
                     torch.arange(reps, device=perm.device)).reshape(-1)
         x2 = x2.index_select(0, perm)
     xf = x2.to(torch.float32)
-    amax = _all_reduce_max(xf.abs().amax(dim=-1, keepdim=True), group)
+    amax = all_reduce(xf.abs().amax(dim=-1, keepdim=True), group,
+                      op=dist.ReduceOp.MAX)
     scale = ref.quant_scale(amax, qmax)
     q = torch.clamp(torch.round(xf / scale), min=-qmax - 1.0, max=qmax)
     return (q.to(torch.int8).reshape(*lead, k),

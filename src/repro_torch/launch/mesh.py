@@ -1,31 +1,36 @@
-"""Meshes for tensor-parallel serving over ``torch.distributed`` (port of
-``repro.launch.mesh.make_serve_mesh``).
+"""Meshes over ``torch.distributed`` (port of ``repro.launch.mesh``):
+the training meshes of ``make_mesh`` and ``make_production_mesh``, and
+the tensor-parallel serving mesh of ``make_serve_mesh``.
 
-The reference builds a 1-D ``("model",)`` ``jax.sharding.Mesh`` over the
-first ``n`` devices of ONE process.  Here every rank is a process of its
-own (SPMD: each runs the same engine on its shard), so a mesh is the
-process group of the first ``n`` ranks of an initialised default group,
-with this process's place in it.  :func:`spawn_ranks` starts such a group
-on one host.
+The reference builds a ``jax.sharding.Mesh`` over the devices of ONE
+process.  Here every rank is a process of its own (SPMD: each runs the
+same program on its shard), started on one host by :func:`spawn_ranks`.
+A :class:`Mesh` is an n-dimensional grid of axis names and sizes; bound
+to an initialised default group of the same size, it also holds this
+rank's coordinates (ranks in row-major order over the grid) and one
+process group for its line along each axis (the ranks that differ from it
+in that axis only), which the collectives of ``distributed`` run over.
+A :class:`ServeMesh` is the 1-D ``("model",)`` mesh of the first ``n``
+ranks that ``ServeEngine(mesh=)`` serves on.
 
-The group's backend follows the topology, and the mesh records it: NCCL
+The groups' backend follows the topology, and the mesh records it: NCCL
 only when every rank has a card of its own; gloo when ranks share a card
 (NCCL refuses two ranks on one GPU) or run on the CPU.  Over gloo, CUDA
-tensors travel through host memory (``distributed.tp_serve``).  The NCCL
+tensors travel through host memory (``distributed.comm``).  The NCCL
 transport has not run yet (one card a machine so far).
-
-The reference's ``make_mesh`` and ``make_production_mesh`` (training
-meshes) are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import queue
 import socket
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Tuple, TypeVar
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    TypeVar)
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -38,10 +43,21 @@ T = TypeVar("T")
 # instead of hanging.
 COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=600)
 
-# (n, backend) -> process group.  ``dist.new_group`` is collective over the
-# default group: every rank asks for the same meshes in the same order, so
-# each rank's cache holds the same groups.
-_GROUPS: Dict[Tuple[int, str], Any] = {}
+# (ranks, backend) -> process group.  ``dist.new_group`` is collective over
+# the default group: every rank asks for the same meshes in the same order,
+# so each rank's cache holds the same groups.
+_GROUPS: Dict[Tuple[Tuple[int, ...], str], Any] = {}
+
+
+def _group(ranks: Tuple[int, ...], backend: str) -> Any:
+    """The process group of ``ranks`` (global ranks), made once.  Every
+    rank of the default group must call it for every group, in the same
+    order, member or not."""
+    key = (ranks, backend)
+    if key not in _GROUPS:
+        _GROUPS[key] = dist.new_group(list(ranks), backend=backend,
+                                      timeout=COLLECTIVE_TIMEOUT)
+    return _GROUPS[key]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,26 +119,148 @@ def make_serve_mesh(n: int, *, device: Any = None) -> ServeMesh:
     if world < n:
         raise ValueError(f"--mesh {n} needs {n} ranks but the default "
                          f"group has only {world}")
+    dev, devices = _rank_devices(device)
+    backend = _backend_for(devices[:n])
+    rank = dist.get_rank()
+    return ServeMesh(group=_group(tuple(range(n)), backend), n=n,
+                     rank=rank if rank < n else -1, device=dev,
+                     backend=backend)
+
+
+def _rank_devices(device: Any) -> Tuple[torch.device, List[str]]:
+    """This rank's device (default: cuda, the current card) and every
+    rank's, by name, in rank order (collective)."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    devices: List[Optional[str]] = [None] * world
+    devices: List[Optional[str]] = [None] * dist.get_world_size()
     dist.all_gather_object(devices, str(dev))
-    backend = _backend_for([str(d) for d in devices[:n]])
-    key = (n, backend)
-    if key not in _GROUPS:
-        _GROUPS[key] = dist.new_group(list(range(n)), backend=backend,
-                                      timeout=COLLECTIVE_TIMEOUT)
+    return dev, [str(d) for d in devices]
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """An n-dimensional mesh: ``shape`` and ``axis_names`` (the
+    reference's ``mesh.devices.shape`` and ``mesh.axis_names``), which is
+    all the sharding rules read.  Bound (``rank >= 0``) it is one rank's
+    view of the default group laid out row-major over ``shape``: its
+    ``device``, the groups' ``backend`` and, per axis, the process group
+    of its line along that axis (``group``)."""
+
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    rank: int = -1
+    device: Optional[torch.device] = None
+    backend: Optional[str] = None
+    groups: Tuple[Any, ...] = dataclasses.field(default=(), compare=False,
+                                                repr=False)
+
+    @property
+    def n(self) -> int:
+        """The number of ranks (devices) of the mesh."""
+        return math.prod(self.shape)
+
+    @property
+    def bound(self) -> bool:
+        return self.rank >= 0
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self.axis_names.index(name)]
+
+    def coords_of(self, rank: int) -> Tuple[int, ...]:
+        """Rank ``rank``'s place on each axis (row-major)."""
+        return tuple(int(i) for i in np.unravel_index(rank, self.shape))
+
+    @property
+    def coords(self) -> Tuple[int, ...]:
+        """This rank's place on each axis."""
+        if not self.bound:
+            raise ValueError("an unbound mesh has no ranks")
+        return self.coords_of(self.rank)
+
+    def index(self, name: str) -> int:
+        """This rank's place on axis ``name`` (its rank in
+        ``group(name)``)."""
+        return self.coords[self.axis_names.index(name)]
+
+    def group(self, name: str) -> Any:
+        """The process group of this rank's line along axis ``name``."""
+        if not self.bound:
+            raise ValueError("an unbound mesh has no process groups")
+        return self.groups[self.axis_names.index(name)]
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (the default group)."""
+        if self.backend == "nccl":
+            dist.barrier(device_ids=[self.device.index])
+        else:
+            dist.barrier()
+
+
+def _lines(shape: Tuple[int, ...], axis: int) -> List[Tuple[int, ...]]:
+    """The ranks of every line along ``axis`` (row-major ranks), each in
+    axis order, the lines in row-major order of the other axes."""
+    ranks = np.arange(math.prod(shape)).reshape(shape)
+    moved = np.moveaxis(ranks, axis, -1).reshape(-1, shape[axis])
+    return [tuple(int(r) for r in line) for line in moved]
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
+              device: Any = None) -> Mesh:
+    """The mesh ``shape`` x ``axes`` over the initialised default group,
+    whose size must be the mesh's (e.g. ``(4,), ("stage",)`` or ``(2, 2),
+    ("data", "model")``).
+
+    Collective: every rank of the default group calls it, and makes every
+    line's group in the same order.  ``device`` is this rank's (default:
+    cuda, the current card).  Raises if the default group is not
+    initialised or its size is not the mesh's."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes) or min(shape, default=0) < 1:
+        raise ValueError(f"mesh shape {shape} does not fit axes {axes}")
+    n = math.prod(shape)
+    if not dist.is_available() or not dist.is_initialized():
+        raise ValueError(
+            f"a {shape} mesh needs an initialised torch.distributed default "
+            f"group of {n} ranks (start them with "
+            "repro_torch.launch.mesh.spawn_ranks)")
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(f"a {shape} mesh needs {n} ranks but the default "
+                         f"group has {world}")
+    dev, devices = _rank_devices(device)
+    backend = _backend_for(devices)
     rank = dist.get_rank()
-    return ServeMesh(group=_GROUPS[key], n=n, rank=rank if rank < n else -1,
-                     device=dev, backend=backend)
+    groups = []
+    for axis in range(len(shape)):
+        mine = None
+        for line in _lines(shape, axis):
+            g = _group(line, backend)
+            if rank in line:
+                mine = g
+        groups.append(mine)
+    return Mesh(shape=shape, axis_names=axes, rank=rank, device=dev,
+                backend=backend, groups=tuple(groups))
 
 
-def in_turn(mesh: ServeMesh, fn: Callable[[], T]) -> T:
-    """``fn()`` on each rank of ``mesh`` in rank order, one rank at a time
-    (a barrier after each turn): e.g. each rank building the full store
-    before keeping its shard, so that no two full stores are ever on one
-    card together.  Returns this rank's result."""
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh: one pod of 16 x 16 = 256 chips
+    ``("data", "model")``, or two pods, 2 x 16 x 16 = 512 chips ``("pod",
+    "data", "model")`` with DP across pods.  No machine here has 256
+    ranks, so the mesh is returned unbound: its shape and axis names are
+    what the sharding rules read (the reference's dry-run does no more
+    with it either)."""
+    if multi_pod:
+        return Mesh(shape=(2, 16, 16), axis_names=("pod", "data", "model"))
+    return Mesh(shape=(16, 16), axis_names=("data", "model"))
+
+
+def in_turn(mesh: Any, fn: Callable[[], T]) -> T:
+    """``fn()`` on each rank of ``mesh`` (a :class:`ServeMesh` or a bound
+    :class:`Mesh`) in rank order, one rank at a time (a barrier after each
+    turn): e.g. each rank building the full store before keeping its
+    shard, so that no two full stores are ever on one card together.
+    Returns this rank's result."""
     out: Any = None
     for r in range(mesh.n):
         if r == mesh.rank:

@@ -91,7 +91,7 @@ import torch
 from repro_torch.checkpoint import checkpoint as checkpoint_lib
 from repro_torch.core.policy import INTEGER_BACKENDS, PrecisionPolicy
 from repro_torch.device import resolve_device
-from repro_torch.distributed import sharding_rules, tp_serve
+from repro_torch.distributed import comm, sharding_rules, tp_serve
 from repro_torch.kernels import _build, ops
 from repro_torch.models.layers import Runtime
 from repro_torch.models.transformer import LM
@@ -583,7 +583,7 @@ class ServeEngine(_DeferredErrors):
         dim = self._c_specs[path]
         if dim is None:
             return t
-        return tp_serve.all_gather_tiled(t, dim, self._tp.group)
+        return comm.all_gather_tiled(t, dim, self._tp.group)
 
     def _keep_shard(self, path: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's KV-head slice of one whole arena field of a slot."""

@@ -851,3 +851,25 @@ def test_tp_mesh_equals_unsharded(gen, tmp_path):
                        device="cuda")[0]
     got = spawn_ranks(2, ranks.gpu_rank, str(path), device="cuda")
     assert got == [want, want]
+
+
+def test_tp_mlp_block_wire_equals_plain_quantizer(gen):
+    """``tp_mlp_block`` on two ranks sharing this card (gloo): each rank's
+    wire quantizer is kernel 1 (one launch), and the gathered codes and
+    scales equal the plain quantizer's on each K-shard, bit for bit; both
+    ranks end with the same y."""
+    import _torch_dist_ranks as ranks
+    from repro_torch.launch.mesh import spawn_ranks
+    x = torch.from_numpy(ranks.tp_inputs("3d")[0]).cuda()
+    k = x.shape[-1] // 2
+    plain = [ref.act_quant_ref(x[..., r * k:(r + 1) * k].reshape(-1, k))
+             for r in range(2)]
+    codes = torch.cat([q for q, _ in plain], -1).reshape(*x.shape)
+    scales = torch.cat([s for _, s in plain], -1).to(torch.bfloat16)
+    got = spawn_ranks(2, ranks.gpu_rank, device="cuda")
+    for r in got:
+        assert r["launches"] == 1
+        assert np.array_equal(r["codes"], codes.cpu().numpy())
+        assert np.array_equal(r["scales"], scales.float().cpu().reshape(
+            *x.shape[:-1], 2).numpy())
+        assert np.array_equal(r["y"], got[0]["y"])
