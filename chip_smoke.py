@@ -272,6 +272,24 @@ Phases, in order (any failure exits non-zero and prints no result line):
             per-device parameter bytes of the full qwen3-8b, llama4-scout
             and grok-1 trees on both production meshes, reckoned from
             shapes (meta tensors), not measured.
+4j. dryrun  the dry-run and roofline tools (``launch.dryrun``,
+            ``launch.roofline``), on meta tensors in this process: (a) two
+            production cells, qwen3-8b decode_32k on 16 x 16 and
+            mamba2-1.3b long_500k on 2 x 16 x 16 with --kv-bits 8, and
+            their roofline table at the H100's data-sheet peaks (a
+            reckoning, not a measurement); (b) phase 4g's train shape
+            (full-width qwen3-8b cut to 4 layers, seq 256 x batch 8, w4a8
+            ``fake_quant``, f32 moments) on a 1 x 1 mesh: the meta flop
+            count must equal ``FlopCounterMode`` over one real step on
+            this card, and 4g's measured step ms is printed against the
+            roofline's bound (flops at peak, the least bytes a step
+            moves, collectives) as a share, beside the eager op trace's
+            bytes (not a bound); the same equality for (c) one
+            ``decomposed`` decode step of the reduced qwen3-8b (batch 8,
+            cache 128) and (d) its prefill of 2 x 3072 tokens, three
+            flash-attention K/V blocks.  Each card step is the meta
+            cell's own, built on the card by ``dryrun.build_cell``.
+            Launches no hand-written kernel (asserted).
 5. fixed    the quickstart form, --w-bits 4 with the int8 KV cache and
             then the int4 one (--kv-bits 8, 4; LSB-first planes), at full
             width with the depth cut to 4 layers; for each, the ``cuda``
@@ -3873,6 +3891,120 @@ def phase_dist(card: str) -> dict:
     return {"launches": launches, "seconds": secs, "production": prod}
 
 
+# ------------------------------------------------------------ phase 4j
+# (a) the production cells dry-run in process.
+DRYRUN_CELLS = (("qwen3-8b", "decode_32k", False, None),
+                ("mamba2-1.3b", "long_500k", True, 8))
+# (c) the reduced decode cell and (d) a reduced prefill whose flash
+# attention makes three K/V trips (block_k 1024), each reckoned against
+# one real step.
+DRYRUN_DECODE = ("qwen3-8b", "decode_32k")
+DRYRUN_PREFILL = ("qwen3-8b", 3072, 2)
+
+
+def _meta_and_card(arch, shape, *, mesh, reduced: bool = False,
+                   moment_dtype: str = "bfloat16") -> dict:
+    """``dryrun.run_cell`` on meta and ``FlopCounterMode`` over the same
+    cell's step built on the card by ``dryrun.build_cell``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+    kw = dict(reduced=reduced, mesh=mesh, moment_dtype=moment_dtype)
+    t0 = time.perf_counter()
+    res = dryrun.run_cell(arch, shape, **kw)
+    meta_s = time.perf_counter() - t0
+    cell, _ = dryrun.build_cell(arch, shape, multi_pod=False, backend=None,
+                                w_bits=4, a_bits=8, kv_bits=None,
+                                device="cuda", **kw)
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as counter:
+        cell.step(*cell.args, **cell.kwargs)
+    sync()
+    real_s = time.perf_counter() - t0
+    if res["flops"] != counter.get_total_flops():
+        raise AssertionError(f"dryrun: {res['arch']} {res['shape']} counts "
+                             f"{res['flops']} flops on meta, "
+                             f"{counter.get_total_flops()} on the card")
+    return {"cell": res, "meta_s": meta_s, "real_s": real_s}
+
+
+def phase_dryrun(train: dict, card: str) -> dict:
+    """Phase 4j: the dry-run and roofline tools; see the module
+    docstring."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.specs import ShapeSpec
+    before = dict(_build.LAUNCHES)
+    # (a)
+    cells = []
+    for arch, shape, multi_pod, kv_bits in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        cell = dryrun.run_cell(arch, shape, multi_pod=multi_pod,
+                               kv_bits=kv_bits)
+        log(f"[dryrun] (a) {arch} {shape} {cell['mesh']}: "
+            f"{time.perf_counter() - t0:.1f}s on meta " + json.dumps(
+                {k: cell[k] for k in ("flops", "bytes_accessed",
+                                      "min_bytes_accessed", "memory",
+                                      "collectives", "hlo_lines", "lower_s",
+                                      "compile_s")}))
+        if cell["skipped"] or not cell["flops"] > 0:
+            raise AssertionError(f"dryrun: {arch} {shape}: {cell}")
+        cells.append(cell)
+    for line in roofline.format_table(cells).splitlines():
+        log(f"[dryrun] {line}")
+    # (b)
+    one = Mesh((1, 1), ("data", "model"))
+    cfg = dataclasses.replace(get_config("qwen3-8b"),
+                              num_layers=int(TRAIN_FULL_ARGV[
+                                  TRAIN_FULL_ARGV.index("--layers") + 1]))
+    shape = ShapeSpec("train_4g", "train", 256, 8)
+    tr = _meta_and_card(cfg, shape, mesh=one, moment_dtype="float32")
+    cell = tr["cell"]
+    terms = roofline.roofline_terms(cell)
+    step_ms = train["step_ms"]
+    bound_ms = terms["step_time_bound_s"] * 1e3
+    share = bound_ms / step_ms
+    log(f"[dryrun] (b) 4g's step (qwen3-8b, {cfg.num_layers} layers, seq "
+        f"{shape.seq_len} x batch {shape.global_batch}, w4a8 fake_quant, "
+        f"f32 moments): {cell['flops']:.0f} flops on meta "
+        f"({tr['meta_s']:.1f}s) == FlopCounterMode over one step on the "
+        f"card ({tr['real_s']:.1f}s); roofline bound {bound_ms:.3f} ms "
+        f"({terms['dominant']}: compute {terms['compute_s'] * 1e3:.3f} ms, "
+        f"least bytes {cell['min_bytes_accessed']:.0f} = "
+        f"{terms['min_memory_s'] * 1e3:.3f} ms) against 4g's measured "
+        f"{step_ms:.1f} ms: {100 * share:.2f} % of the bound, on {card} "
+        f"(data-sheet peaks at 700 W); eager bytes (the op trace, "
+        f"unfused; not a bound) {cell['bytes_accessed']:.0f} = "
+        f"{terms['memory_s'] * 1e3:.3f} ms; temp peak "
+        f"{cell['memory']['temp_size_in_bytes']} B")
+    # (c)
+    dec = _meta_and_card(*DRYRUN_DECODE, mesh=one, reduced=True)
+    log(f"[dryrun] (c) reduced {DRYRUN_DECODE[0]} decomposed decode step, "
+        f"batch {dec['cell']['global_batch']}, cache "
+        f"{dec['cell']['seq_len']}: {dec['cell']['flops']:.0f} flops on "
+        f"meta == FlopCounterMode over one step on the card")
+    # (d)
+    arch, seq, batch = DRYRUN_PREFILL
+    pre = _meta_and_card(arch, ShapeSpec("prefill_3k", "prefill", seq, batch),
+                         mesh=one, reduced=True)
+    log(f"[dryrun] (d) reduced {arch} decomposed prefill, batch {batch} x "
+        f"seq {seq} (flash attention: {-(-seq // 1024)} K/V blocks): "
+        f"{pre['cell']['flops']:.0f} flops on meta == FlopCounterMode over "
+        f"one step on the card")
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    if any(launched.values()):
+        raise AssertionError(f"dryrun: launched kernels {launched}")
+    return {"cells": cells, "train": {"flops": cell["flops"],
+                                      "bound_ms": bound_ms,
+                                      "step_ms": step_ms, "share": share},
+            "decode_flops": dec["cell"]["flops"],
+            "prefill_flops": pre["cell"]["flops"]}
+
+
 def phase_fixed() -> dict:
     from repro_torch.core.policy import uniform_policy
     from repro_torch.models.layers import Runtime
@@ -4312,6 +4444,8 @@ def main() -> int:
                        ("tp", lambda: phase_tp(out["mixed"],
                                                out["build"]["card"])),
                        ("dist", lambda: phase_dist(out["build"]["card"])),
+                       ("dryrun", lambda: phase_dryrun(
+                           out["train"]["full"], out["build"]["card"])),
                        ("fixed", phase_fixed), ("times", phase_times)):
         t = time.perf_counter()
         out[phase] = run()

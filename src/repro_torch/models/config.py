@@ -79,6 +79,12 @@ class ArchConfig:
         return self.num_layers // p
 
     @property
+    def sub_quadratic(self) -> bool:
+        """True if long-context decode is O(1)/O(layers) per token (SSM or
+        hybrid with mostly-SSM layers)."""
+        return self.ssm or self.attn_every > 0
+
+    @property
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
