@@ -29,7 +29,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
             ``ARCH_GEMM_SHAPES``) and one ragged shape (M=5,
             K=4100, N=1000).  Kernels 3 and 5 also run M in
             {16, 17, 40} at the serving shapes (prefill buckets, a ragged
-            row tile), and with kernel 1 (every width, bf16 and f32, K in
+            row tile), on fixed-width LSB-first planes of every width 2-8
+            (3-bit signed MSB planes at 3, 5, 7) at M = 512 (K x N 4096 x
+            12288) and 8 (4096 x 1024), and with kernel 1 (every width, bf16 and f32, K in
             {4096, 12288}) at M in {65, 192, 512}, the rows of a
             ``BatchServeEngine`` prefill (up to 8 prompts of 64): more than
             one 64-row tile.  The packed GEMM runs every stored width
@@ -123,8 +125,10 @@ Phases, in order (any failure exits non-zero and prints no result line):
             git-ignored ``build/overload/``.  (b) ``SLOPolicy(preempt, shed,
             tenant_weights={"a": 2.0}, time_slice=2)`` on the shape of the
             reference command line's overload stream (12 requests, two
-            tenants): every FINISHED stream equals an uninterrupted run's,
-            with sheds and time-slice preemptions; prints the counters.
+            tenants), on (d)'s 4-layer int8-plane model (the policy prices
+            tiers relative to each other, alike at any depth): every
+            FINISHED stream equals an uninterrupted run's, with sheds and
+            time-slice preemptions; prints the counters.
             (d) At 4 layers, for both stores: (a) and (c) on ``cuda`` and on
             the plain ``decomposed`` backend, which must launch nothing,
             with equal streams.
@@ -193,10 +197,10 @@ Phases, in order (any failure exits non-zero and prints no result line):
             dense bf16 bound 6 * N * tokens at the data-sheet peak; the
             mean loss of the last 5 steps must be below the first 5's.
             (b) ``examples/train_qat.py``'s "full" preset (d 640, 16
-            layers, vocab 32768, seq 256, batch 16, ``--accum 4``), 40
-            steps with ``--ckpt-every 20`` under ``build/train/``; then
-            ``step_40`` removed and the same flags again: the run
-            auto-resumes at step 20, and its params, moments and step must
+            layers, vocab 32768, seq 256, batch 16, ``--accum 4``), 16
+            steps with ``--ckpt-every 8`` under ``build/train/``; then
+            ``step_16`` removed and the same flags again: the run
+            auto-resumes at step 8, and its params, moments and step must
             equal the uninterrupted run's bit for bit.  (c) The reduced
             qwen3-8b (AdamW) and the default ConvNet (SGD, unsigned
             activations) take 4 steps on the card and on the CPU from one
@@ -227,7 +231,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             and one decode step's code and output bytes on the wire equal
             ``decode_wire_stats``; prints each rank's store bytes, build
             and serving peaks, launches and decode-step ms.  (b) 4 ranks at
-            4 layers, both stores, kv_tiers {8/8: bf16, 4/4: 8, 2/2: 4}:
+            2 layers, both stores, kv_tiers {8/8: bf16, 4/4: 8, 2/2: 4}:
             uid 0 migrated to 2/2, then uids 1 (spilled) and 2 preempted
             and resumed prefill-free (no launch), a sampled run
             (temperature 0.8, top-k 40) and a ``Telemetry(profile=True)``
@@ -256,7 +260,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             (2, 2) mesh: full-width qwen3-8b cut to one layer, each rank's
             half-batch gradient (``train.step.value_and_grad``, SyntheticLM,
             w4a8 ``fake_quant``; the ranks take turns), then
-            ``compressed_psum_tree`` at bits 8 and 2, 3 rounds each with
+            ``compressed_psum_tree`` at bits 8 and 2, 2 rounds each with
             error feedback: the means and residuals of one projection and
             one norm equal the same calls on the CPU bit for bit every
             round, the embedding's in each width's first round (a host
@@ -290,6 +294,30 @@ Phases, in order (any failure exits non-zero and prints no result line):
             flash-attention K/V blocks.  Each card step is the meta
             cell's own, built on the card by ``dryrun.build_cell``.
             Launches no hand-written kernel (asserted).
+4k. examples the five example scripts of the port
+            (``examples/*_torch.py``).  (a) Each one's ``main`` on the card
+            at its published size, as a user runs it, held against its
+            replay on the plain ``decomposed`` backend on the card (which
+            must launch nothing): quickstart's int32 accumulators and
+            outputs at w2/w3/w4/w6/w8 (kernels 1 and 3 on the fixed-width
+            Table-I planes: w3 is one signed 3-bit plane, w6 three)
+            bit-equal; serve_quantized (reduced qwen3-8b, w4a8, int8 KV,
+            8 streamed requests) and long_context_ssm (reduced mamba2-1.3b,
+            256 greedy steps at batch 2: kernel 3 at M = 2) with equal
+            streams; precision_sweep (60 steps of w8a8 QAT, then six
+            policies' serve-mode CE at M = 512 rows a projection) with its
+            six CEs bit-equal; train_qat's ci preset (no kernel:
+            ``fake_quant``) finishes, and with its last checkpoint removed
+            resumes from step 30 to the same state bit for bit.  (b) The
+            sweep's evaluation at qwen3-8b's full width (d_model 4096, the
+            head 4096 x 152064), depth cut 36 -> 4 as in 4g, seeded
+            weights with no QAT (the CEs are of an untrained model), seq 32
+            x batch 16 (M = 512): each policy's CE equal to the plain
+            replay's bit for bit, its seconds and peak memory printed; and
+            kernel 3 on the fixed-width planes of an MLP projection and the
+            head at every width against its plain version.  The launches of
+            (a)'s mains and (b)'s ``cuda`` evaluations are the kernel
+            line's ``examples`` counts: kernels 1 and 3 only.
 5. fixed    the quickstart form, --w-bits 4 with the int8 KV cache and
             then the int4 one (--kv-bits 8, 4; LSB-first planes), at full
             width with the depth cut to 4 layers; for each, the ``cuda``
@@ -314,7 +342,10 @@ Phases, in order (any failure exits non-zero and prints no result line):
             and M = 160, kernels 1 and 2 at M = 288, kernel 3 at M = 32.
             Phase 4i's wire quantizer: kernel 1 on f32 K-shards (K 2048
             and 1024) of 64 rows 4096 wide, and kernels 1 and 2 at
-            K = 1024.
+            K = 1024.  Phase 4k's sweep: kernel 3 on fixed-width planes
+            (w2, w3, w4, w6, w8: P = 1, 1, 2, 3, 4) at M = 512, K x N =
+            4096 x 12288 and the head (4096 x 152064), beside
+            ``torch._int_mm`` on the recomposed weight.
 
 The script takes no arguments.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the one before it the card's name and
@@ -514,6 +545,18 @@ def _inputs(m: int, k: int, n: int, gen):
     x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device="cuda",
                       generator=gen)
     return x, planes
+
+
+def _fixed_planes(bits: int, k: int, n: int, gen):
+    """LSB-first Table-I planes of random signed ``bits``-bit codes (a
+    3-bit signed MSB plane at 3, 5 and 7 bits), as ``prepare_weight``
+    stores a fixed-width weight."""
+    import torch
+    from repro_torch.core import decompose
+    lo, hi = decompose.weight_range(bits, True)
+    q = torch.randint(lo, hi + 1, (k, n), dtype=torch.int32, device="cuda",
+                      generator=gen)
+    return decompose.decompose_weights(q, bits).contiguous()
 
 
 def _mixed_layout(m: int):
@@ -744,6 +787,18 @@ def phase_parity() -> dict:
              ref.grouped_matmul_ref(x, w4, mult4, packed=True, store_planes=2))
         del x, planes, packed, w4
         sync()
+        torch.cuda.empty_cache()
+    # Fixed-width planes of every width (shifts 2c), at the sweep's M = 512
+    # rows of phase 4k and at a decode step's 8.
+    for m, k, n in ((512, 4096, 12288), (8, 4096, 1024)):
+        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device="cuda",
+                          generator=gen)
+        for bits in range(2, 9):
+            planes = _fixed_planes(bits, k, n, gen)
+            shifts = tuple(2 * c for c in range(planes.shape[0]))
+            hold("bitserial_matmul", bsm.bitserial_matmul(x, planes, shifts),
+                 ref.bitserial_matmul_ref(x, planes, shifts))
+        del x, planes
         torch.cuda.empty_cache()
     # The shift GEMMs at the prefill buckets' row counts and a ragged row
     # tile (M = 17), every plane count and truncation.
@@ -1877,20 +1932,48 @@ def _serve_overload(model, params, rt, reqs, policy) -> dict:
             "launches": dict(_build.LAUNCHES)}
 
 
-def phase_overload(tiers: dict, card: str) -> dict:
-    """Phase 4d: preemption, spill and resume, the overload policy and the
-    telemetry on the phase-4c model and schedule; at 4 layers the plain
-    replays."""
+def _overload_policy(cfg, model, params, rt, sched, card: str) -> None:
+    """Phase 4d (b): the overload policy against an uninterrupted run."""
     import dataclasses
 
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.handle import RequestStatus
+    from repro_torch.serve.scheduler import SLOPolicy
+    oreqs = _overload_requests(cfg.vocab_size)
+    policy = SLOPolicy(sched, mac_counts=cfg.quant_layer_macs(),
+                       preempt_slack=2.0 * MIXED_KW["decode_chunk"],
+                       **OVERLOAD_POLICY)
+    over = _serve_overload(model, params, rt, oreqs, policy)
+    plain = _serve(engine_mod.ServeEngine(model, params, rt, **MIXED_KW),
+                   [dataclasses.replace(r, deadline=None) for r in oreqs],
+                   "overload-uninterrupted")["tokens"]
+    finished = {u: h.tokens for u, h in over["handles"].items()
+                if h.status is RequestStatus.FINISHED}
+    _check_same("overload-policy", finished,
+                {u: plain[u] for u in finished}, "the uninterrupted run's")
+    st = over["stats"]
+    counters = {k: getattr(st, k) for k in (
+        "preemptions", "resumes", "sheds", "time_slice_preemptions",
+        "spill_bytes", "prefills", "decode_steps")}
+    if not (st.sheds and st.time_slice_preemptions
+            and st.preemptions == st.resumes):
+        raise AssertionError(f"overload-policy: counters {counters}")
+    log("[overload] policy " + json.dumps({
+        **counters, "finished": len(finished),
+        "shed_uids": sorted(u for u, h in over["handles"].items()
+                            if h.status is RequestStatus.SHED),
+        "layers": cfg.num_layers, "wall_s": over["wall_s"], "card": card}))
+
+
+def phase_overload(tiers: dict, card: str) -> dict:
+    """Phase 4d: preemption, spill and resume and the telemetry on the
+    phase-4c model and schedule; at 4 layers the plain replays and the
+    overload policy."""
     import torch
     from repro_torch import telemetry as telemetry_mod
     from repro_torch.configs import get_config
     from repro_torch.core.policy import uniform_schedule
     from repro_torch.models.layers import Runtime
-    from repro_torch.serve import engine as engine_mod
-    from repro_torch.serve.handle import RequestStatus
-    from repro_torch.serve.scheduler import SLOPolicy
     from repro_torch.telemetry import Telemetry
     sched = uniform_schedule(TIERS, backend="cuda", kv_tiers=KV_TIERS)
     rt = Runtime(policy=sched.policy_for(), schedule=sched)
@@ -1961,33 +2044,8 @@ def phase_overload(tiers: dict, card: str) -> dict:
         f"{out_dir / 'trace.json'} ({len(tele.tracer.chrome_events())} "
         "events)")
     del ref, prof_run
-    # (b) The overload policy against an uninterrupted run.
-    oreqs = _overload_requests(cfg.vocab_size)
-    policy = SLOPolicy(sched, mac_counts=cfg.quant_layer_macs(),
-                       preempt_slack=2.0 * MIXED_KW["decode_chunk"],
-                       **OVERLOAD_POLICY)
-    over = _serve_overload(model, params, rt, oreqs, policy)
-    plain = _serve(engine_mod.ServeEngine(model, params, rt, **MIXED_KW),
-                   [dataclasses.replace(r, deadline=None) for r in oreqs],
-                   "overload-uninterrupted")["tokens"]
-    finished = {u: h.tokens for u, h in over["handles"].items()
-                if h.status is RequestStatus.FINISHED}
-    _check_same("overload-policy", finished,
-                {u: plain[u] for u in finished}, "the uninterrupted run's")
-    st = over["stats"]
-    counters = {k: getattr(st, k) for k in (
-        "preemptions", "resumes", "sheds", "time_slice_preemptions",
-        "spill_bytes", "prefills", "decode_steps")}
-    if not (st.sheds and st.time_slice_preemptions
-            and st.preemptions == st.resumes):
-        raise AssertionError(f"overload-policy: counters {counters}")
-    log("[overload] policy " + json.dumps({
-        **counters, "finished": len(finished),
-        "shed_uids": sorted(u for u, h in over["handles"].items()
-                            if h.status is RequestStatus.SHED),
-        "wall_s": over["wall_s"], "card": card}))
     launches = run["launches"]
-    del params, over
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     # (d) At 4 layers, both stores: (a) and (c) on the plain backend launch
@@ -1997,9 +2055,13 @@ def phase_overload(tiers: dict, card: str) -> dict:
     rt_plain = Runtime(policy=plain_sched.policy_for(), schedule=plain_sched)
     for packed in (False, True):
         label = f"overload-4-{'packed' if packed else 'planes'}"
-        _, model4, params4 = _build_model(4, sched.prepare_policy(),
-                                          superplane=True, seed=0,
-                                          packed=packed)
+        cfg4, model4, params4 = _build_model(4, sched.prepare_policy(),
+                                             superplane=True, seed=0,
+                                             packed=packed)
+        if not packed:
+            # (b): the scheduler prices tiers relative to each other, the
+            # same at any depth of identical layers.
+            _overload_policy(cfg4, model4, params4, rt, sched, card)
         runs = {}
         for name, r in (("cuda", rt), ("plain", rt_plain)):
             runs[name] = _preempt_schedule(model4, params4, r, reqs,
@@ -2759,7 +2821,9 @@ TRAIN_RESUME_ARGV = ["--arch", "qwen3-8b", "--d-model", "640", "--layers",
                      "16", "--vocab", "32768", "--seq-len", "256", "--batch",
                      "16", "--accum", "4", "--w-bits", "4", "--device",
                      "cuda"]
-TRAIN_RESUME_STEPS = (20, 40)
+# Checkpoint at 8, resume from it to 16: the resume path needs a save, a
+# removal and a restart, not 40 steps (2.4 s a step with --accum 4).
+TRAIN_RESUME_STEPS = (8, 16)
 BF16_PEAK_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
 # (c) card against CPU, 4 steps from one init: every step's loss within
 # TRAIN_LOSS_ATOL; each LM parameter within 4 * sum(lr) + 2 bf16 ulps of
@@ -2876,7 +2940,8 @@ def _train_full(card: str) -> dict:
 
 
 def _train_resume() -> dict:
-    """(b): 40 steps straight against 20 + auto-resume + 20, bit for bit."""
+    """(b): the steps straight against half + auto-resume + half, bit for
+    bit."""
     import shutil
 
     import torch
@@ -3077,7 +3142,7 @@ def phase_train(card: str) -> dict:
 # ------------------------------------------------------------ phase 4h
 TP_FULL_RANKS = 2
 TP_RANKS = 4
-TP_LAYERS = 4
+TP_LAYERS = 2
 # Phase 4h (b): after the first round uid 0 moves to 2/2 (bf16 KV lanes to
 # int4); uid 1 is preempted through a spill, uid 2 in host memory.
 TP_MIGRATE = (0, "2/2")
@@ -3187,7 +3252,7 @@ def _tp_full(rank: int, mesh) -> dict:
 
 
 def _tp_small(rank: int, mesh, spill: str) -> dict:
-    """Phase 4h (b) on one rank of the 4-rank mesh: the 4-layer model,
+    """Phase 4h (b) on one rank of the 4-rank mesh: the TP_LAYERS model,
     each store, every scenario."""
     import torch
 
@@ -3455,11 +3520,11 @@ DIST_TP = dict(d=4096, f=12288, rows=64)
 # largest |y| apart.
 DIST_TP_CPU_ULPS = 4
 # (b) full-width qwen3-8b cut to one layer; 2 data-parallel ranks, each
-# half of a batch of 8 x 256 tokens at w4a8 fake_quant; 3 rounds at each
-# width.  The leaves also reduced on the CPU: a projection and a norm
+# half of a batch of 8 x 256 tokens at w4a8 fake_quant; 2 rounds at each
+# width (the second carries the first's error feedback).  The leaves also reduced on the CPU: a projection and a norm
 # every round; the embedding (0.62 G entries, 10-18 s a round on the
 # host) in each width's first round.
-DIST_DP = dict(layers=1, seq=256, batch=8, rounds=3)
+DIST_DP = dict(layers=1, seq=256, batch=8, rounds=2)
 DIST_DP_CHECKED = ("layers.0.pos0.attn.q_proj.w",
                    "layers.0.pos0.mixer_norm.g")
 DIST_DP_FIRST_ROUND = ("embed.emb",)
@@ -3586,7 +3651,7 @@ def _dist_dp(mesh) -> dict:
     """(b) compressed data-parallel gradients on the "dp" line of ranks 0
     and 1 (the line of rep 0; ranks 2 and 3 only wait): each computes its
     half-batch gradient in turn, then ``compressed_psum_tree`` runs at
-    bits 8 and 2 for 3 rounds with error feedback, the checked leaves
+    bits 8 and 2 for 2 rounds with error feedback, the checked leaves
     also on the CPU."""
     import torch
 
@@ -4005,6 +4070,197 @@ def phase_dryrun(train: dict, card: str) -> dict:
             "prefill_flops": pre["cell"]["flops"]}
 
 
+# ------------------------------------------------------------ phase 4k
+EXAMPLES_USED = ("act_quant", "bitserial_matmul")
+EXAMPLES_UNUSED = ("act_quant_rows", "grouped_dequant_matmul",
+                   "packed_bitserial_matmul", "grouped_matmul")
+# (b): qwen3-8b at full width, its depth cut as in phase 4g; seeded weights.
+SWEEP_FULL_LAYERS = 4
+SWEEP_FULL_SEED = 11
+
+
+def _example(name: str):
+    """``examples/<name>_torch.py`` as a module."""
+    import importlib
+    path = str(ROOT / "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name + "_torch")
+
+
+def _on_path(label: str, fn, total: dict):
+    """``fn()`` with its launches counted (kernels 1 and 3 only) and added
+    to the path's ``total``."""
+    out, res = _profiled(label, fn, EXAMPLES_USED, EXAMPLES_UNUSED)
+    for k, v in res["launches"].items():
+        total[k] = total.get(k, 0) + v
+    return out, res
+
+
+def _plain(label: str, fn):
+    """``fn()`` on the plain ``decomposed`` backend: launches nothing."""
+    return _profiled(label, fn, (), tuple(KERNELS))
+
+
+def _examples_twins(total: dict) -> dict:
+    """(a): each twin's ``main`` on the card, against its plain replay."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.transformer import LM
+    card = MIXED_KW["device"]
+    dev = ["--device", card]
+    res = {}
+    # quickstart: the int32 accumulators of section 4 at w2..w8.
+    qs = _example("quickstart")
+    got, res["quickstart"] = _on_path("examples-quickstart",
+                                      lambda: qs.main(dev), total)
+    plain, _ = _plain("examples-quickstart-plain",
+                      lambda: qs.run(card, "decomposed"))
+    for bits in qs.WIDTHS:
+        if not (torch.equal(got["acc"][bits], plain["acc"][bits])
+                and torch.equal(got["y"][bits], plain["y"][bits])):
+            raise AssertionError(f"quickstart: w{bits}a8 differs from the "
+                                 "plain replay")
+    log("[examples] quickstart: int32 accumulators and outputs at w"
+        f"{'/'.join(map(str, qs.WIDTHS))}a8 bit-equal to the plain replay")
+    # serve_quantized and long_context_ssm: equal streams.
+    for name, key in (("serve_quantized", "results"),
+                      ("long_context_ssm", "tokens")):
+        mod = _example(name)
+        got, res[name] = _on_path(f"examples-{name}", lambda: mod.main(dev),
+                                  total)
+        plain, _ = _plain(f"examples-{name}-plain", lambda: mod.run(
+            device=card, backend="decomposed"))
+        same = (got[key] == plain[key]) if key == "results" \
+            else torch.equal(got[key], plain[key])
+        if not same:
+            raise AssertionError(f"{name}: streams differ from the plain "
+                                 "replay")
+        log(f"[examples] {name}: streams equal to the plain replay's")
+    # precision_sweep (reduced): the six CEs against the plain replay on
+    # the trained weights.
+    sw = _example("precision_sweep")
+    got, res["precision_sweep"] = _on_path(
+        "examples-precision_sweep", lambda: sw.main(dev), total)
+    model = LM(reduced_config("qwen3-8b"))
+    held = sw.batch_on(sw.data_for(model.cfg.vocab_size), sw.HELD_OUT_STEP,
+                       torch.device(card))
+    plain, _ = _plain("examples-precision_sweep-plain", lambda: sw.evaluate(
+        model, got["params"], held, "decomposed", say=lambda _: None))
+    ces = {k: v["ce"] for k, v in got["sweep"].items()}
+    if ces != {k: v["ce"] for k, v in plain.items()}:
+        raise AssertionError(f"precision_sweep: CEs {ces} differ from the "
+                             f"plain replay's {plain}")
+    res["precision_sweep"].update(ce=ces, train_ce=got["train_ce"])
+    log("[examples] precision_sweep: the six CEs bit-equal to the plain "
+        f"replay's: {json.dumps(ces)}")
+    # train_qat: the ci preset (fake_quant: no kernel), then resumed from
+    # its step 30.
+    tq = _example("train_qat")
+    directory = ROOT / "build" / "examples" / "train_qat"
+    shutil.rmtree(directory, ignore_errors=True)
+    argv = dev + ["--ckpt-dir", str(directory)]
+    first, res["train_qat"] = _plain("examples-train_qat",
+                                     lambda: tq.main(argv))
+    steps = ckpt.list_steps(str(directory))
+    ckpt.remove(str(directory), steps[-1])
+    resumed, _ = _plain("examples-train_qat-resumed", lambda: tq.main(argv))
+    differ = sum(not torch.equal(a, b) for a, b in
+                 _leaf_pairs(first["state"], resumed["state"]))
+    if steps != [30, 60] or differ:
+        raise AssertionError(f"train_qat: saved {steps}; {differ} leaves of "
+                             "the resumed run differ")
+    log(f"[examples] train_qat: ci preset saved steps {steps}; resumed from "
+        "step 30, its state equals the uninterrupted run's bit for bit")
+    shutil.rmtree(directory, ignore_errors=True)
+    return res
+
+
+def _sweep_full(card_name: str, total: dict) -> dict:
+    """(b): the sweep's evaluation at qwen3-8b's full width."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import LayerPrecision
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import ops, ref
+    sw = _example("precision_sweep")
+    card = MIXED_KW["device"]
+    cfg, model, params = _build_model(SWEEP_FULL_LAYERS, None,
+                                      superplane=False, seed=SWEEP_FULL_SEED,
+                                      prepare=False)
+    held = sw.batch_on(sw.data_for(cfg.vocab_size), sw.HELD_OUT_STEP,
+                       torch.device(card))
+    log(f"[examples] (b) full-width sweep: {cfg.name} d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size} (head N = {cfg.padded_vocab}), depth cut "
+        f"{get_config('qwen3-8b').num_layers} -> {SWEEP_FULL_LAYERS}, batch "
+        f"{sw.BATCH} x seq {sw.SEQ_LEN} = {sw.BATCH * sw.SEQ_LEN} rows a "
+        f"projection; seeded weights (seed {SWEEP_FULL_SEED}) with no QAT: "
+        "these CEs are of an UNTRAINED model (only the mechanics and the "
+        f"equality are checked); {card_name}")
+    rows = {}
+    for name in sw.policies("cuda"):
+        got, rows[name] = _on_path(f"examples-sweep-full {name}",
+                                   lambda: sw.evaluate(
+                                       model, params, held, "cuda", say=log,
+                                       names=(name,)), total)
+        plain, rep = _plain(f"examples-sweep-full {name} plain",
+                            lambda: sw.evaluate(model, params, held,
+                                                "decomposed",
+                                                say=lambda _: None,
+                                                names=(name,)))
+        if got[name]["ce"] != plain[name]["ce"]:
+            raise AssertionError(f"sweep-full {name}: CE {got[name]['ce']} "
+                                 f"!= plain {plain[name]['ce']}")
+        rows[name].update(ce=got[name]["ce"], plain_s=rep["s"])
+    # Kernel 3 on the fixed-width planes themselves (a comparison, off the
+    # path): 512 rows of kernel-1 codes against the plain version, for an
+    # MLP projection and the head at every width.
+    gen = torch.Generator(device=card)
+    gen.manual_seed(SWEEP_FULL_SEED)
+    for label, w in (("layers.0.pos0.mlp.up_proj",
+                      params["layers"][0]["pos0"]["mlp"]["up_proj"]["w"]),
+                     ("lm_head", params["lm_head"]["w"])):
+        w = w.to(torch.float32)
+        x = torch.randn((sw.BATCH * sw.SEQ_LEN, w.shape[0]), device=card,
+                        generator=gen).to(torch.bfloat16)
+        x_q, _ = ops.quantize_activations(x, 8)
+        for bits in (8, 6, 4, 3, 2):
+            qw = ops.prepare_weight(w, LayerPrecision(bits, 8))
+            shifts = tuple(2 * c for c in range(qw.planes.shape[0]))
+            if not torch.equal(bsm.bitserial_matmul(x_q, qw.planes, shifts),
+                               ref.bitserial_matmul_ref(x_q, qw.planes,
+                                                        shifts)):
+                raise AssertionError(f"sweep-full: kernel 3 on {label} w{bits}"
+                                     " planes differs from its plain version")
+            del qw
+        log(f"[examples] (b) kernel 3 on {label}'s fixed-width planes "
+            f"(K x N = {w.shape[0]} x {w.shape[1]}, M = {x_q.shape[0]}) at "
+            "w8/w6/w4/w3/w2 bit-equal to its plain version")
+        del w, x, x_q
+    del params
+    return rows
+
+
+def phase_examples(card: str) -> dict:
+    total: dict = {}
+    t = time.perf_counter()
+    twins = _examples_twins(total)
+    twins_s = time.perf_counter() - t
+    t = time.perf_counter()
+    full = _sweep_full(card, total)
+    full_s = time.perf_counter() - t
+    _check_launches("examples", total, EXAMPLES_USED, EXAMPLES_UNUSED)
+    log("[examples] launches of the path (the twins' mains and (b)'s cuda "
+        f"evaluations): {json.dumps(total, sort_keys=True)}; (a) "
+        f"{twins_s:.1f}s, (b) {full_s:.1f}s")
+    return {"twins": twins, "sweep_full": full, "twins_s": twins_s,
+            "sweep_full_s": full_s, "launches": total}
+
+
+# --------------------------------------------------------------- phase 5
 def phase_fixed() -> dict:
     from repro_torch.core.policy import uniform_policy
     from repro_torch.models.layers import Runtime
@@ -4395,6 +4651,29 @@ def phase_times() -> dict:
                 lib if p == 4 else None)
         del x, planes, w8, lib
         torch.cuda.empty_cache()
+    # Phase 4k's sweep: kernel 3 on fixed-width LSB-first planes (w3: one
+    # signed 3-bit plane) at M = 512 rows, an MLP projection and the head,
+    # beside torch._int_mm on the recomposed weight.
+    for k, n in ((4096, 12288), (4096, 152064)):
+        m = 512
+        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device="cuda",
+                          generator=gen)
+        for bits in (2, 3, 4, 6, 8):
+            planes = _fixed_planes(bits, k, n, gen)
+            p = planes.shape[0]
+            sh = tuple(2 * c for c in range(p))
+            w8 = decompose.recompose_weights(planes, bits).to(
+                torch.int8).contiguous()
+            row("bitserial_matmul", f"M={m} K={k} N={n} w{bits} fixed P={p}",
+                lambda planes=planes, sh=sh: bsm.bitserial_matmul(
+                    x, planes, sh),
+                lambda planes=planes, sh=sh: ref.bitserial_matmul_ref(
+                    x, planes, sh),
+                m * k + p * k * n + 4 * m * n, 2.0 * m * k * n,
+                lambda w8=w8: torch._int_mm(x, w8))
+            del planes, w8
+            torch.cuda.empty_cache()
+        del x
     return {"rows": rows, "launch_floor_ms": floor}
 
 
@@ -4446,6 +4725,8 @@ def main() -> int:
                        ("dist", lambda: phase_dist(out["build"]["card"])),
                        ("dryrun", lambda: phase_dryrun(
                            out["train"]["full"], out["build"]["card"])),
+                       ("examples", lambda: phase_examples(
+                           out["build"]["card"])),
                        ("fixed", phase_fixed), ("times", phase_times)):
         t = time.perf_counter()
         out[phase] = run()
@@ -4472,7 +4753,7 @@ def main() -> int:
                                  for path in ("parity", "mixed", "packed",
                                               "spec", "tiers", "overload",
                                               "archs", "autoprec", "train",
-                                              "tp", "dist")}}
+                                              "tp", "dist", "examples")}}
         if name.startswith("act_quant"):
             entry["launch_floor_ms"] = out["times"]["launch_floor_ms"]
         if name == "grouped_dequant_matmul":   # its packed mode, on "packed"

@@ -14,14 +14,18 @@ from repro_torch.core.decompose import (  # noqa: F401
     num_prefix_planes,
     plane_shifts,
     prefix_shifts,
+    recompose_superplane_prefix,
     recompose_weights,
+    superplane_prefix,
     weight_range,
 )
 from repro_torch.core.quant import (  # noqa: F401
     MAX_BITS,
     QuantConfig,
     compute_scale,
+    dequantize,
     fake_quant,
+    int_matmul_dequant,
     nested_quantize,
     nested_scale,
     quantize,

@@ -53,11 +53,27 @@ def plane_widths_lsb_first(w_bits: int, signed: bool = True) -> tuple[int, ...]:
     return tuple(reversed(schedule(w_bits, signed)))
 
 
+def msb_plane_width(w_bits: int, signed: bool = True) -> int:
+    """Width of the sign-carrying MSB chunk (2: '2-bit mode', 3: '3-bit
+    mode')."""
+    return schedule(w_bits, signed)[0]
+
+
 def weight_range(w_bits: int, signed: bool) -> tuple[int, int]:
     """Representable integer range for an M-bit (un)signed weight."""
     if signed:
         return -(1 << (w_bits - 1)), (1 << (w_bits - 1)) - 1
     return 0, (1 << w_bits) - 1
+
+
+def plane_value_range(w_bits: int, plane: int,
+                      signed: bool) -> tuple[int, int]:
+    """Value range of decomposed plane ``plane`` (LSB-first index)."""
+    widths = plane_widths_lsb_first(w_bits, signed)
+    w = widths[plane]
+    if plane == len(widths) - 1 and signed:
+        return -(1 << (w - 1)), (1 << (w - 1)) - 1
+    return 0, (1 << w) - 1
 
 
 def _plane_list(w: torch.Tensor, w_bits: int,
@@ -95,15 +111,20 @@ def recompose_weights(planes: torch.Tensor, w_bits: int, *,
                       signed: bool = True) -> torch.Tensor:
     """Exact inverse of :func:`decompose_weights` (int32 output)."""
     shifts = plane_shifts(w_bits, signed)
-    if planes.shape[0] != len(shifts):
+    if planes_count(planes) != len(shifts):
         raise ValueError(
-            f"plane count {planes.shape[0]} != schedule {len(shifts)} for "
-            f"{w_bits}-bit")
+            f"plane count {planes_count(planes)} != schedule {len(shifts)} "
+            f"for {w_bits}-bit")
     acc = torch.zeros(planes.shape[1:], dtype=torch.int32,
                       device=planes.device)
     for c, s in enumerate(shifts):
         acc = acc + (planes[c].to(torch.int32) << s)
     return acc
+
+
+def planes_count(w_planes: torch.Tensor) -> int:
+    """Planes in a stack of planes (its leading axis)."""
+    return w_planes.shape[0]
 
 
 # ------------------------------------------------------------- superplanes
@@ -136,6 +157,19 @@ def prefix_shifts(num_planes: int) -> tuple[int, ...]:
     return tuple(2 * (num_planes - 1 - c) for c in range(num_planes))
 
 
+def superplane_prefix(planes_msb: torch.Tensor,
+                      eff_bits: int) -> torch.Tensor:
+    """The MSB plane prefix serving ``eff_bits`` (still MSB-first; a view)."""
+    return planes_msb[: num_prefix_planes(eff_bits)]
+
+
+def recompose_superplane_prefix(planes_msb: torch.Tensor, eff_bits: int, *,
+                                signed: bool = True) -> torch.Tensor:
+    """Integer value of a truncated superplane == ``q8 >> (8 - eff_bits)``."""
+    prefix = superplane_prefix(planes_msb, eff_bits)
+    return recompose_weights(prefix.flip(0), eff_bits, signed=signed)
+
+
 def prefix_multipliers(plane_groups: Sequence[Tuple[int, int]]) -> np.ndarray:
     """Per-row plane-multiplier table for group-switching GEMMs: row ``r``
     of a group serving ``P'`` MSB-first planes weighs plane ``c`` by
@@ -154,8 +188,9 @@ def prefix_multipliers(plane_groups: Sequence[Tuple[int, int]]) -> np.ndarray:
     return mult
 
 
-def _int_matmul(x_int: torch.Tensor, plane: torch.Tensor) -> torch.Tensor:
-    """Exact ``x @ plane`` for small integers (float64, see module doc)."""
+def int_matmul(x_int: torch.Tensor, plane: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``x @ plane`` for small integers (float64, see module
+    doc)."""
     return torch.matmul(x_int.to(torch.float64),
                         plane.to(torch.float64)).to(torch.int32)
 
@@ -168,7 +203,7 @@ def decomposed_matmul_multipliers(x_int: torch.Tensor,
     [Pmax, K, N], mult int32 [M, Pmax] -> int32 [M, N]."""
     acc = None
     for c in range(planes_msb.shape[0]):
-        part = _int_matmul(x_int, planes_msb[c]) * mult[:, c:c + 1]
+        part = int_matmul(x_int, planes_msb[c]) * mult[:, c:c + 1]
         acc = part if acc is None else acc + part
     assert acc is not None
     return acc
@@ -179,7 +214,7 @@ def decomposed_matmul_shifts(x_int: torch.Tensor, w_planes: torch.Tensor,
     """``sum_c (x_int @ w_planes[c]) << shifts[c]`` in int32."""
     acc = None
     for c, s in enumerate(shifts):
-        part = _int_matmul(x_int, w_planes[c]) << s
+        part = int_matmul(x_int, w_planes[c]) << s
         acc = part if acc is None else acc + part
     assert acc is not None
     return acc
@@ -192,4 +227,25 @@ def decomposed_matmul(x_int: torch.Tensor, w_planes: torch.Tensor,
     x_int [..., K], w_planes int8 [P, K, N] -> int32 [..., N]."""
     del w_bits   # the shift schedule is 2c per plane for every schedule
     return decomposed_matmul_shifts(
-        x_int, w_planes, tuple(2 * c for c in range(w_planes.shape[0])))
+        x_int, w_planes, tuple(2 * c for c in range(planes_count(w_planes))))
+
+
+def decomposed_matmul_grouped(x_int: torch.Tensor, planes_msb: torch.Tensor,
+                              row_groups: Sequence[Tuple[int, int]]
+                              ) -> torch.Tensor:
+    """Per-row-group effective-width oracle (mixed-tier decode batches):
+    each contiguous group ``(rows, eff_bits)`` of x's leading axis runs
+    :func:`decomposed_matmul` against its own MSB plane prefix of the
+    superplane store, and the groups are concatenated back.
+    x_int [B, ..., K], planes_msb int8 [4, K, N] -> int32 [B, ..., N]."""
+    total = sum(r for r, _ in row_groups)
+    if total != x_int.shape[0]:
+        raise ValueError(f"row_groups cover {total} rows, x has "
+                         f"{x_int.shape[0]}")
+    outs, off = [], 0
+    for rows, eff_bits in row_groups:
+        prefix = superplane_prefix(planes_msb, eff_bits).flip(0)  # LSB-first
+        outs.append(decomposed_matmul(x_int[off:off + rows], prefix,
+                                      eff_bits))
+        off += rows
+    return torch.cat(outs, dim=0)

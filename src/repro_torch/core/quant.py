@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.decompose import int_matmul
+
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
@@ -60,6 +62,11 @@ def quantize(x: torch.Tensor, cfg: QuantConfig,
     q = torch.clamp(torch.round(x / scale), cfg.qmin, cfg.qmax)
     dtype = torch.int8 if cfg.signed else torch.uint8
     return q.to(dtype), scale.to(torch.float32)
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int codes -> f32 values, ``f32(q) * scale``."""
+    return q.to(torch.float32) * scale
 
 
 class _SteRound(torch.autograd.Function):
@@ -127,3 +134,21 @@ def nested_quantize(x: torch.Tensor, cfg: QuantConfig,
     q = truncate_qint(q8, MAX_BITS, cfg.bits)
     dtype = torch.int8 if cfg.signed else torch.uint8
     return q.to(dtype), nested_scale(s8, MAX_BITS, cfg.bits)
+
+
+def quantize_unsigned_activations(x: torch.Tensor, bits: int
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Post-ReLU activations: unsigned per-tensor quantization (the S=0
+    column signal).  Returns (uint8 codes, scale f32)."""
+    cfg = QuantConfig(bits=bits, signed=False, per_channel=False)
+    return quantize(x, cfg)
+
+
+def int_matmul_dequant(x_q: torch.Tensor, w_q: torch.Tensor,
+                       x_scale: torch.Tensor,
+                       w_scale: torch.Tensor) -> torch.Tensor:
+    """``f32(x_q @ w_q) * x_scale * w_scale``: the integer-domain matmul the
+    accelerator performs, mapped back to float.  The product is exact
+    (:func:`~repro_torch.core.decompose.int_matmul`)."""
+    acc = int_matmul(x_q, w_q)
+    return acc.to(torch.float32) * x_scale * w_scale

@@ -24,3 +24,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def integer_backend(device: torch.device) -> str:
+    """The integer backend an entry point runs on ``device``: the
+    hand-written kernels (``cuda``) on a card, their plain versions
+    (``decomposed``) elsewhere."""
+    return "cuda" if device.type == "cuda" else "decomposed"

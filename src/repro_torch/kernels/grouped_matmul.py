@@ -17,6 +17,8 @@ from repro_torch.core import decompose
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.bitserial_matmul import _launch
 
+STORE_PLANES: int = decompose.SUPERPLANE_PLANES   # byte fields per weight
+
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
            packed: bool, store_planes: int) -> int:
@@ -51,7 +53,7 @@ def _gemm_args(packed, store_planes, signed):
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor, *,
                    packed: bool = False,
-                   store_planes: int = decompose.SUPERPLANE_PLANES,
+                   store_planes: int = STORE_PLANES,
                    signed: bool = True) -> torch.Tensor:
     """int32 [M, N] = sum_c (x @ plane_c) * mult[:, c].
 
@@ -77,7 +79,7 @@ def grouped_dequant_matmul(x: torch.Tensor, w: torch.Tensor,
                            w_scale: torch.Tensor, row_group: torch.Tensor,
                            out_dtype: torch.dtype = torch.bfloat16, *,
                            packed: bool = False,
-                           store_planes: int = decompose.SUPERPLANE_PLANES,
+                           store_planes: int = STORE_PLANES,
                            signed: bool = True) -> torch.Tensor:
     """out [M, N] = ((f32(sum_c (x @ plane_c) * mult[:, c]) * x_scale)
     * w_scale[row_group]) cast to ``out_dtype``.

@@ -168,8 +168,8 @@ def truncate_weight(qw: QuantizedWeight, eff_bits: int) -> QuantizedWeight:
     the float weights."""
     if not qw.msb_first:
         raise ValueError("truncate_weight needs a superplane (msb_first) store")
-    n = decompose.num_prefix_planes(eff_bits)
-    planes = qw.get_planes()[:n].flip(0).contiguous()
+    planes = decompose.superplane_prefix(qw.get_planes(),
+                                         eff_bits).flip(0).contiguous()
     scale = qw.eff_scale(eff_bits)
     if qw.packed is not None:
         return QuantizedWeight(planes=None, scale=scale, w_bits=eff_bits,
@@ -308,8 +308,8 @@ def bitserial_matmul_planes(x_int8: torch.Tensor, qw: QuantizedWeight, *,
         return out.reshape(*lead, n)
     planes = qw.get_planes()
     if qw.msb_first:
-        planes = planes[: decompose.num_prefix_planes(eff)]
-        shifts = decompose.prefix_shifts(planes.shape[0])
+        planes = decompose.superplane_prefix(planes, eff)
+        shifts = decompose.prefix_shifts(decompose.planes_count(planes))
     else:
         shifts = tuple(2 * c for c in range(planes.shape[0]))
     out = bsm.bitserial_matmul(x2, planes, shifts)
@@ -551,7 +551,7 @@ def dequant_matmul(x_q: torch.Tensor, x_s: torch.Tensor, qw: QuantizedWeight,
     if backend == "decomposed":
         planes = qw.get_planes()
         if qw.msb_first:
-            planes = planes[: decompose.num_prefix_planes(eff_bits)].flip(0)
+            planes = decompose.superplane_prefix(planes, eff_bits).flip(0)
         acc = decompose.decomposed_matmul(x_q, planes, eff_bits)
     elif backend == "cuda":
         acc = bitserial_matmul_planes(x_q, qw, eff_bits=eff_bits)

@@ -77,6 +77,17 @@ def bitserial_matmul_ref(x_int: torch.Tensor, planes: torch.Tensor,
     return decompose.decomposed_matmul_shifts(x_int, planes, shifts)
 
 
+def quantized_matmul_ref(x: torch.Tensor, w_planes: torch.Tensor,
+                         w_scale: torch.Tensor, w_bits: int,
+                         a_bits: int = 8) -> torch.Tensor:
+    """Float in, float out: per-row activation quantization, the integer
+    decomposed matmul over LSB-first planes, both scales out.
+    x [M, K], w_planes int8 [P, K, N], w_scale f32 [1, N] -> f32 [M, N]."""
+    q, s = act_quant_ref(x, bits=a_bits)
+    acc = decompose.decomposed_matmul(q, w_planes, w_bits)
+    return acc.to(torch.float32) * s * w_scale
+
+
 def packed_field(w_packed: torch.Tensor, field: int,
                  sign: bool) -> torch.Tensor:
     """Byte field ``field`` (bits ``2*field .. 2*field+1``) of a uint8 store

@@ -482,38 +482,13 @@ def _serve(args, schedule, policy, mesh=None):
               "every budget fit one decode chunk; raise --max-new or "
               "lower --decode-chunk")
     results = {h.uid: h.tokens for h in handles}
+    # Shed requests never reach engine.results: check the finished ones.
+    # Every rank of a mesh runs the same scheduler, so each holds them.
+    assert all(results[h.uid] == engine.results[h.uid] for h in handles
+               if h.status is RequestStatus.FINISHED)
     toks = sum(len(v) for v in results.values())
     print(f"served {len(reqs)} requests, {toks} tokens ({events} streamed "
           f"events) in {dt:.2f}s ({toks / dt:.1f} tok/s)")
-    st = engine.stats
-    print("stats " + json.dumps({
-        "prefills": st.prefills, "decode_steps": st.decode_steps,
-        "decode_chunks": st.decode_chunks,
-        "decode_slot_steps": st.decode_slot_steps,
-        "mixed_tier_chunks": st.mixed_tier_chunks,
-        "tier_switches": st.tier_switches,
-        "tier_migrations": st.tier_migrations,
-        "kv_migrations": st.kv_migrations,
-        "tier_autoselects": st.tier_autoselects,
-        "decode_steps_by_tier": st.decode_steps_by_tier,
-        "tokens_by_tier": st.tokens_by_tier}, sort_keys=True))
-    if args.slo:
-        misses = [h.uid for h in handles if h.request.deadline is not None
-                  and h.finished_at - h.submitted_at > h.request.deadline]
-        print("slo " + json.dumps({
-            "queue_wait": {h.uid: h.queue_wait for h in handles},
-            "deadline_misses": misses,
-            "tiers": {h.uid: h.tier for h in handles}}, sort_keys=True))
-    if args.speculate:
-        rate = st.spec_accepted / st.spec_drafted if st.spec_drafted else 0.0
-        print("spec " + json.dumps({
-            "spec_rounds": st.spec_rounds,
-            "spec_draft_steps": st.spec_draft_steps,
-            "spec_verify_steps": st.spec_verify_steps,
-            "spec_drafted": st.spec_drafted,
-            "spec_accepted": st.spec_accepted,
-            "spec_emitted": st.spec_emitted,
-            "acceptance_rate": rate}, sort_keys=True))
     print(serve_report(tele.registry, tiers=args.tiers,
                        mixed=not args.serialize_tiers, slo=args.slo,
                        speculate=args.speculate, overload=overload))

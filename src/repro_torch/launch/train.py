@@ -49,7 +49,11 @@ def restore_state(directory: str, step: int, state: Dict[str, Any],
     return unstack_layers(tree), extra
 
 
-def main(argv: Optional[list] = None) -> Dict[str, Any]:
+def main(argv: Optional[list] = None,
+         init_params: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Parse ``argv``, train and return the final train state.
+    ``init_params`` (a params tree of the configured model) replaces the
+    seeded initialisation, e.g. weights converted from the reference."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--reduced", action="store_true")
@@ -99,9 +103,12 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
         global_batch=args.batch,
         embed_dim=cfg.d_model if cfg.frontend != "none" else 0))
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    params = model.init(gen, device=dev)
+    if init_params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = model.init(gen, device=dev)
+    else:
+        params = optim.tree_map(lambda t: t.to(dev), init_params)
     n_params = sum(x.numel() for x in optim.tree_leaves(params))
     print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
           f"w{args.w_bits}a{args.a_bits} backend={args.backend}")

@@ -228,6 +228,25 @@ def _ensure_prepared(params: Any, rt: Runtime, model: LM,
     return params
 
 
+def quantized_paths(params: Any) -> List[str]:
+    """keystr paths of the prepared weights, named in the reference's
+    layout (the per-layer dicts stacked into ``periods``), as its engines
+    report them: one path per projection of a period."""
+    paths: List[str] = []
+
+    def walk(tree: Any, path: str) -> None:
+        if isinstance(tree, ops.QuantizedWeight):
+            paths.append(path)
+        elif isinstance(tree, dict):
+            for key in sorted(tree):
+                walk(tree[key], f"{path}[{key!r}]")
+
+    layers = params.get("layers")
+    walk({**{k: v for k, v in params.items() if k != "layers"},
+          **({"periods": layers[0]} if layers else {})}, "")
+    return paths
+
+
 def _validate_request(request: Request, max_len: int,
                       seen_uids: Set[int]) -> None:
     """Non-empty prompt, positive decode budget, fits the arena, fresh uid."""
@@ -475,6 +494,7 @@ class ServeEngine(_DeferredErrors):
         self.prompt_bucket = max(1, prompt_bucket)
         self.mixed_tiers = mixed_tiers
         self.params = _ensure_prepared(params, rt, model, packed)
+        self.quantized_paths = quantized_paths(self.params)
         self.schedule = rt.schedule
         # Tier-serialized mode: the tier the decode batch runs at (None
         # while it is empty) and the one it ran at last.
@@ -1595,6 +1615,7 @@ class BatchServeEngine(_DeferredErrors):
             rt = rt.for_tier(tier)
         self.rt = rt
         self.params = _ensure_prepared(params, rt, model, packed)
+        self.quantized_paths = quantized_paths(self.params)
         self.max_batch = max_batch
         self.max_len = max_len
         self.kv_bits = kv_bits

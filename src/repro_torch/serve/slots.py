@@ -53,6 +53,12 @@ Snapshot = List[Dict[str, Dict[str, torch.Tensor]]]
 # (arena path of a field, e.g. "0.pos0.k"; one slot's tensor) -> tensor
 FieldMap = Callable[[str, torch.Tensor], torch.Tensor]
 
+# The slot axis of the reference's period-stacked cache leaves
+# [n_periods, B, ...], the layout of a spilled snapshot (spill_tree).  The
+# arena here keeps one cache per period, so there the slot axis is the
+# first of every tensor.
+SLOT_AXIS = 1
+
 
 def slot_view(caches: Caches, slot: int) -> Caches:
     """Slot ``slot`` as a batch-1 cache list sharing storage with the arena."""
@@ -137,7 +143,8 @@ def spill_tree(snap: Snapshot) -> Dict[str, Fields]:
     ([n_periods, 1, ...]) and named as an attribute of the registered
     cache dataclass (``['pos0'].k``, ``['pos1'].conv``), so a spill file
     restores in either package."""
-    return {pos: Fields((f, torch.stack([layer[pos][f] for layer in snap]))
+    return {pos: Fields((f, torch.stack([layer[pos][f] for layer in snap],
+                                        dim=SLOT_AXIS - 1))
                         for f in fields)
             for pos, fields in snap[0].items()}
 

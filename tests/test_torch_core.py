@@ -131,6 +131,139 @@ def test_truncate_and_nested_scale_exact(bits):
         tquant.nested_scale(torch.from_numpy(s), 8, bits))
 
 
+def test_dequantize_exact():
+    rng = np.random.default_rng(4)
+    q = rng.integers(-128, 128, size=(6, 40)).astype(np.int8)
+    s = rng.random((1, 40)).astype(np.float32)
+    _eq(jquant.dequantize(jnp.asarray(q), jnp.asarray(s)),
+        tquant.dequantize(torch.from_numpy(q), torch.from_numpy(s)))
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_quantize_unsigned_activations_exact(bits):
+    """Post-ReLU activations (an exact zero on qmin included): uint8 codes
+    and the per-tensor scale bit-equal."""
+    x = np.maximum(np.random.default_rng(bits).normal(size=(9, 70)),
+                   0).astype(np.float32)
+    qj, sj = jquant.quantize_unsigned_activations(jnp.asarray(x), bits)
+    qt, st = tquant.quantize_unsigned_activations(torch.from_numpy(x), bits)
+    _eq(qj, qt)
+    _eq(sj, st)
+
+
+@pytest.mark.parametrize("signed", [True, False])
+def test_int_matmul_dequant_exact(signed):
+    rng = np.random.default_rng(5 + signed)
+    x = (rng.integers(-128, 128, size=(7, 96)).astype(np.int8) if signed
+         else rng.integers(0, 256, size=(7, 96)).astype(np.uint8))
+    w = rng.integers(-128, 128, size=(96, 33)).astype(np.int8)
+    xs = rng.random((7, 1)).astype(np.float32)
+    ws = rng.random((1, 33)).astype(np.float32)
+    _eq(jquant.int_matmul_dequant(*map(jnp.asarray, (x, w, xs, ws))),
+        tquant.int_matmul_dequant(*map(torch.from_numpy, (x, w, xs, ws))))
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("signed", [True, False])
+def test_plane_shape_helpers_exact(bits, signed):
+    """msb_plane_width, plane_value_range (every plane) and planes_count;
+    every plane of a decomposition lies in its range."""
+    assert tdec.msb_plane_width(bits, signed) == \
+        jdec.msb_plane_width(bits, signed)
+    lo, hi = jdec.weight_range(bits, signed)
+    w = np.random.default_rng(bits).integers(lo, hi + 1, size=(40, 30))
+    planes = tdec.decompose_weights(torch.from_numpy(w), bits, signed=signed)
+    assert tdec.planes_count(planes) == jdec.planes_count(
+        jdec.decompose_weights(jnp.asarray(w), bits, signed=signed))
+    for c in range(tdec.num_planes(bits, signed)):
+        rng_ = tdec.plane_value_range(bits, c, signed)
+        assert rng_ == jdec.plane_value_range(bits, c, signed)
+        assert rng_[0] <= int(planes[c].min()) <= int(planes[c].max()) \
+            <= rng_[1]
+
+
+@pytest.mark.parametrize("eff", [2, 4, 6, 8])
+@pytest.mark.parametrize("signed", [True, False])
+def test_superplane_prefix_exact(eff, signed):
+    lo, hi = jdec.weight_range(8, signed)
+    q8 = np.random.default_rng(eff).integers(lo, hi + 1, size=(24, 20))
+    pj = jdec.decompose_superplanes(jnp.asarray(q8), signed=signed)
+    pt = tdec.decompose_superplanes(torch.from_numpy(q8), signed=signed)
+    _eq(jdec.superplane_prefix(pj, eff), tdec.superplane_prefix(pt, eff))
+    got = tdec.recompose_superplane_prefix(pt, eff, signed=signed)
+    _eq(jdec.recompose_superplane_prefix(pj, eff, signed=signed), got)
+    if signed:
+        np.testing.assert_array_equal(got.numpy(), q8 >> (8 - eff))
+
+
+@pytest.mark.parametrize("layout", [((3, 8), (2, 4), (2, 2)), ((4, 6),),
+                                    ((1, 2), (5, 8)), ((2, 4), (1, 6),
+                                                       (2, 2))])
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_decomposed_matmul_grouped_exact(layout, lead):
+    """The grouped oracle equals the reference's, and the grouped GEMM's
+    plain path (ops.bitserial_matmul_planes(row_groups=) on CPU tensors)
+    bit for bit, with an extra leading axis too."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(len(layout) + len(lead))
+    m = sum(r for r, _ in layout)
+    q8 = rng.integers(-128, 128, size=(64, 40))
+    x = rng.integers(-128, 128, size=(m,) + lead + (64,)).astype(np.int8)
+    pj = jdec.decompose_superplanes(jnp.asarray(q8))
+    pt = tdec.decompose_superplanes(torch.from_numpy(q8))
+    got = tdec.decomposed_matmul_grouped(torch.from_numpy(x), pt, layout)
+    _eq(jdec.decomposed_matmul_grouped(jnp.asarray(x), pj, layout), got)
+    qw = ops.QuantizedWeight(planes=pt.contiguous(),
+                             scale=torch.ones((1, 40)), w_bits=8,
+                             msb_first=True)
+    _eq(got.numpy(), ops.bitserial_matmul_planes(torch.from_numpy(x), qw,
+                                                 row_groups=layout))
+    with pytest.raises(ValueError, match="row_groups cover"):
+        tdec.decomposed_matmul_grouped(torch.from_numpy(x[1:]), pt, layout)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("a_bits", [8, 4])
+def test_quantized_matmul_ref_exact(bits, a_bits):
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import ref as tref
+    rng = np.random.default_rng(bits * 10 + a_bits)
+    lo, hi = jdec.weight_range(bits, True)
+    w = rng.integers(lo, hi + 1, size=(64, 24))
+    x = rng.normal(size=(6, 64)).astype(np.float32)
+    ws = rng.random((1, 24)).astype(np.float32)
+    _eq(jref.quantized_matmul_ref(jnp.asarray(x),
+                                  jdec.decompose_weights(jnp.asarray(w), bits),
+                                  jnp.asarray(ws), bits, a_bits),
+        tref.quantized_matmul_ref(torch.from_numpy(x),
+                                  tdec.decompose_weights(torch.from_numpy(w),
+                                                         bits),
+                                  torch.from_numpy(ws), bits, a_bits))
+
+
+def test_slot_axis_and_store_planes_are_the_references():
+    """``SLOT_AXIS`` names the slot axis of a spilled snapshot (the
+    reference's period-stacked layout); ``STORE_PLANES`` the grouped
+    kernels' default store."""
+    from repro.kernels import grouped_matmul as jgmm
+    from repro.serve import slots as jslots
+    from repro_torch.kernels import grouped_matmul as tgmm
+    from repro_torch.serve import slots as tslots
+    assert tslots.SLOT_AXIS == jslots.SLOT_AXIS
+    assert tgmm.STORE_PLANES == jgmm.STORE_PLANES
+    snap = [{"pos0": {"k": torch.zeros(1, 3, 5)}} for _ in range(2)]
+    leaf = tslots.spill_tree(snap)["pos0"]["k"]
+    assert leaf.shape[0] == 2 and leaf.shape[tslots.SLOT_AXIS] == 1
+
+
+def test_core_exports_the_reference_names():
+    import repro.core as jcore
+    import repro_torch.core as tcore
+    names = {n for n in dir(jcore) if not n.startswith("_")
+             and not isinstance(getattr(jcore, n), type(jcore))}
+    assert names <= set(dir(tcore)), sorted(names - set(dir(tcore)))
+
+
 def test_policy_and_schedule_mirror_the_reference():
     tiers = {"8/8": (8, 8), "4/4": (4, 4), "2/2": (2, 2)}
     js = jpol.uniform_schedule(tiers, backend="pallas")
@@ -170,6 +303,7 @@ def test_importing_the_port_loads_no_jax():
 def test_no_jax_or_reference_imports_in_the_port():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)")
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += sorted((ROOT / "examples").glob("*_torch.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
     bad = [f"{f}:{i + 1}: {line}" for f in files

@@ -873,3 +873,26 @@ def test_tp_mlp_block_wire_equals_plain_quantizer(gen):
         assert np.array_equal(r["scales"], scales.float().cpu().reshape(
             *x.shape[:-1], 2).numpy())
         assert np.array_equal(r["y"], got[0]["y"])
+
+
+@pytest.mark.parametrize("bits", [3, 6])
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (512, 4096, 12288)])
+def test_kernel_3_on_fixed_width_planes(gen, bits, m, k, n):
+    """Kernel 3 on the LSB-first planes ``prepare_weight`` stores at a fixed
+    width (w3: one signed 3-bit plane in [-4, 3]; w6: three 2-bit planes),
+    shifts 2c, at a decode step's rows and the precision sweep's 512:
+    bit-equal to its plain version, and to the exact product."""
+    from repro_torch.core.policy import LayerPrecision
+    w = torch.randn((k, n), device="cuda", generator=gen)
+    qw = ops.prepare_weight(w, LayerPrecision(bits, 8, backend="cuda"))
+    assert qw.planes.shape[0] == decompose.num_planes(bits)
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    shifts = tuple(2 * c for c in range(qw.planes.shape[0]))
+    got = _counted("bitserial_matmul",
+                   lambda: bsm.bitserial_matmul(x, qw.planes, shifts))
+    assert torch.equal(got, ref.bitserial_matmul_ref(x, qw.planes, shifts))
+    exact = x.double() @ decompose.recompose_weights(qw.planes, bits).double()
+    assert torch.equal(got, exact.to(torch.int32))
+    assert torch.equal(_counted("bitserial_matmul", lambda: ops.
+                                bitserial_matmul_planes(x, qw)), got)

@@ -19,6 +19,8 @@ the reference's speculative invariants re-asserted within the port.
   (subprocess, see _torch_reference.py); stats identities, event flags,
   no weight preparation after construction; submit and CLI errors.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -647,7 +649,15 @@ def test_serve_cli_speculate_and_sample(argv, capsys):
     assert sorted(out) == list(range(4))
     assert all(len(v) == 1 + (6 * (i % 4)) // 3 for i, v in out.items())
     printed = capsys.readouterr().out
-    assert ("acceptance_rate" in printed) == ("--speculate" in argv)
+    # The acceptance rate as serve_report's speculate section prints it
+    # (the reference's report, its only spec line).
+    rates = re.findall(r"^speculate: rounds=\d+ accepted=(\d+)/(\d+) "
+                       r"\((\d+)%\)", printed, re.M)
+    assert len(rates) == ("--speculate" in argv)
+    for accepted, drafted, pct in rates:
+        assert 0 < int(drafted) and 0 <= int(accepted) <= int(drafted)
+        assert int(pct) == round(100 * int(accepted) / int(drafted))
+    assert not re.search(r"^(stats|slo|spec) \{", printed, re.M)
 
 
 def test_decomposed_spec_round_matches_cuda_backend(setup):
