@@ -61,6 +61,11 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def launch_total() -> int:
+    """Kernel launches so far, over every kernel."""
+    return sum(LAUNCHES.values())
+
+
 def _nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if cand and (pathlib.Path(cand) / "bin" / "nvcc").exists():

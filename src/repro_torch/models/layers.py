@@ -25,7 +25,7 @@ import torch
 from repro_torch.core.policy import (INTEGER_BACKENDS, LayerPrecision,
                                      PrecisionPolicy, PrecisionSchedule)
 from repro_torch.distributed import tp_serve
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +43,10 @@ class Runtime:
     layer a capacity of the whole sequence (no token is dropped).  ``tp``
     (a ``distributed.tp_serve.TPConfig``) is set on a mesh engine: params
     are this rank's shards, attention sees local head counts and the o/down
-    projections take the quantized-gather path."""
+    projections take the quantized-gather path.  ``rec`` (a
+    ``telemetry.trace.Tracer``) is set on a traced call (``LM`` sets it
+    from the process's recorder slot): the blocks record their spans into
+    it."""
 
     policy: PrecisionPolicy
     moe_dropless: bool = False
@@ -54,6 +57,7 @@ class Runtime:
     inv_perm: Optional[torch.Tensor] = None
     fused: bool = True
     tp: Optional[Any] = None
+    rec: Optional[Any] = None
 
     def prec(self, name: str) -> LayerPrecision:
         if self.schedule is not None:
@@ -107,39 +111,46 @@ def linear(params: Dict[str, Any], x: torch.Tensor, rt: Runtime, name: str,
     inside ``ops.matmul``, results scattered back with ``rt.inv_perm``.
     ``act_quants`` is shared by projections reading the SAME tensor.
     Under ``rt.tp`` the o/down projections read feature-sharded inputs and
-    take ``distributed.tp_serve``'s gathered matmuls."""
+    take ``distributed.tp_serve``'s gathered matmuls.  Under ``rt.rec`` a
+    prepared-weight matmul records a ``linear`` span: ``name``, ``rows``
+    and ``launches``, the hand-written kernels it launched."""
     w = params["w"]
-    if isinstance(w, ops.QuantizedWeight):
-        gathered = rt.tp is not None and rt.tp.gathers(name)
-        if rt.groups is not None:
-            if x.shape[0] != rt.group_batch:
-                raise ValueError(
-                    f"{name}: mixed-tier groups cover {rt.group_batch} slots "
-                    f"but x has leading axis {x.shape[0]}")
-            if len(rt.groups) == 1:       # homogeneous layout: no permuting
-                prec = _serve_backend(rt.schedule.lookup(name, rt.groups[0][0]))
-                if gathered:
-                    return tp_serve.gathered_matmul(x, w, prec, tp=rt.tp)
-                return ops.matmul(x, None, prec, qw=w, act_quants=act_quants)
-            row_groups = tuple(
-                (n, _serve_backend(rt.schedule.lookup(name, t)))
-                for t, n in rt.groups)
-            if gathered:
-                yg = tp_serve.gathered_grouped_matmul(x, w, row_groups,
-                                                      rt.perm, tp=rt.tp)
-                return yg.index_select(0, rt.inv_perm)
-            yg = ops.matmul(x, None, row_groups[0][1], qw=w,
-                            row_groups=row_groups, perm=rt.perm,
-                            fused=None if rt.fused else False,
-                            act_quants=act_quants)
-            return yg.index_select(0, rt.inv_perm)
-        prec = _serve_backend(rt.prec(name))
+    if not isinstance(w, ops.QuantizedWeight):
+        y = ops.matmul(x, w, rt.prec(name))
+        if "b" in params:
+            y = y + params["b"].to(y.dtype)
+        return y
+    if rt.groups is not None and x.shape[0] != rt.group_batch:
+        raise ValueError(
+            f"{name}: mixed-tier groups cover {rt.group_batch} slots "
+            f"but x has leading axis {x.shape[0]}")
+    rec = rt.rec
+    if rec is not None:
+        span = rec.begin("linear", name=name, rows=x.numel() // x.shape[-1])
+        launched = _build.launch_total()
+    gathered = rt.tp is not None and rt.tp.gathers(name)
+    if rt.groups is None or len(rt.groups) == 1:   # one tier: no permuting
+        prec = _serve_backend(rt.prec(name) if rt.groups is None else
+                              rt.schedule.lookup(name, rt.groups[0][0]))
         if gathered:
-            return tp_serve.gathered_matmul(x, w, prec, tp=rt.tp)
-        return ops.matmul(x, None, prec, qw=w, act_quants=act_quants)
-    y = ops.matmul(x, w, rt.prec(name))
-    if "b" in params:
-        y = y + params["b"].to(y.dtype)
+            y = tp_serve.gathered_matmul(x, w, prec, tp=rt.tp)
+        else:
+            y = ops.matmul(x, None, prec, qw=w, act_quants=act_quants)
+    else:
+        row_groups = tuple(
+            (n, _serve_backend(rt.schedule.lookup(name, t)))
+            for t, n in rt.groups)
+        if gathered:
+            y = tp_serve.gathered_grouped_matmul(x, w, row_groups, rt.perm,
+                                                 tp=rt.tp)
+        else:
+            y = ops.matmul(x, None, row_groups[0][1], qw=w,
+                           row_groups=row_groups, perm=rt.perm,
+                           fused=None if rt.fused else False,
+                           act_quants=act_quants)
+        y = y.index_select(0, rt.inv_perm)
+    if rec is not None:
+        rec.end(span, launches=_build.launch_total() - launched)
     return y
 
 
@@ -645,7 +656,10 @@ def attention_apply(params: Dict[str, Any], x: torch.Tensor, rt: Runtime,
     decode step's), while qk_norm, RoPE and the core replay one decode
     step per position (``append`` + ``decode_attention`` on [B, 1] slices),
     so position j's output and KV write are bit-identical to the j-th
-    sequential decode step.  Returns (out, cache)."""
+    sequential decode step.  Under ``rt.rec`` the path outside a verify
+    window records ``rope`` (q and k), ``kv_write`` (the cache append or
+    update) and ``attn_core`` (the cache read, the products and the
+    softmax).  Returns (out, cache)."""
     b, s, _ = x.shape
     h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if rt.tp is not None:
@@ -688,28 +702,46 @@ def attention_apply(params: Dict[str, Any], x: torch.Tensor, rt: Runtime,
     if cfg.qk_norm:
         q = qk_headnorm(params["q_norm"], q)
         k = qk_headnorm(params["k_norm"], k)
+    rec = rt.rec
+    if rec is not None:
+        span = rec.begin("rope")
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if rec is not None:
+        rec.end(span)
     if cache is not None:
+        if rec is not None:
+            span = rec.begin("kv_write")
+        start = 0 if cache_start is None else cache_start
         if s == 1:
             cache.append(k, v, active=active)
+        else:
+            cache.update(k, v, start, new_length=seq_lengths)
+        if rec is not None:
+            rec.end(span)
+            span = rec.begin("attn_core")
+        if s == 1:
             out = decode_attention(q, cache, tp=rt.tp)
         else:
-            start = 0 if cache_start is None else cache_start
-            cache.update(k, v, start, new_length=seq_lengths)
             kf, vf = cache.read(q.dtype)
             out = flash_attention(q, kf, vf, causal=True, q_offset=start,
                                   tp=rt.tp)
-    elif rt.groups is not None and len(rt.groups) > 1:
-        # Each row group of a mixed-tier layout attends as a batch of its
-        # own, so its bits equal a forward of that group alone: the card's
-        # batched GEMMs choose their algorithm by the batch count.
-        sizes = [n for _, n in rt.groups]
-        out = torch.cat([
-            flash_attention(*t, causal=True, tp=rt.tp)
-            for t in zip(q.split(sizes), k.split(sizes), v.split(sizes))])
     else:
-        out = flash_attention(q, k, v, causal=True, tp=rt.tp)
+        if rec is not None:
+            span = rec.begin("attn_core")
+        if rt.groups is not None and len(rt.groups) > 1:
+            # Each row group of a mixed-tier layout attends as a batch of
+            # its own, so its bits equal a forward of that group alone: the
+            # card's batched GEMMs choose their algorithm by the batch
+            # count.
+            sizes = [n for _, n in rt.groups]
+            out = torch.cat([
+                flash_attention(*t, causal=True, tp=rt.tp)
+                for t in zip(q.split(sizes), k.split(sizes), v.split(sizes))])
+        else:
+            out = flash_attention(q, k, v, causal=True, tp=rt.tp)
+    if rec is not None:
+        rec.end(span)
     out = out.reshape(b, s, h * dh)
     return linear(params["o_proj"], out, rt, f"{name}.o_proj"), cache
 

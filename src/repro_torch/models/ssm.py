@@ -216,7 +216,8 @@ def ssm_apply(params: Dict[str, Any], x: torch.Tensor, rt: layers.Runtime,
     the projections run batched over the window while the decode core
     replays each position on [B, 1] slices, and the returned cache holds
     the per-step states stacked ([S, B, ...]), ``cache`` left as it was.
-    Returns (y, cache)."""
+    Under ``rt.rec`` decode and the chunked scan record an ``ssm_core``
+    span.  Returns (y, cache)."""
     b, s, _ = x.shape
     di, ns, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     pos = _positionwise(verify_window)
@@ -232,10 +233,15 @@ def ssm_apply(params: Dict[str, Any], x: torch.Tensor, rt: layers.Runtime,
         dtp = torch.where(real[:, :, None], dtp, 0.0)
 
     new_cache = cache
+    rec = rt.rec
     if cache is not None and s == 1:
+        if rec is not None:
+            span = rec.begin("ssm_core")
         y, new_conv, s_new = _decode_core(params, cfg, cache.conv,
                                           cache.state, conv_in, dtp[:, 0],
                                           a, active)
+        if rec is not None:
+            rec.end(span)
         y = y[:, None]                                      # [B, 1, H, P]
         cache.conv.copy_(new_conv)
         cache.state.copy_(s_new)
@@ -257,7 +263,11 @@ def ssm_apply(params: Dict[str, Any], x: torch.Tensor, rt: layers.Runtime,
                                       params["conv_b"])).to(conv_in.dtype)
         xc, bc, cc = torch.split(conv_out, [di, ns, ns], dim=-1)
         xh = xc.reshape(b, s, h, p)
+        if rec is not None:
+            span = rec.begin("ssm_core")
         y = _ssd_chunked(xh, dtp, a, bc, cc, params["D"], cfg.ssm_chunk)
+        if rec is not None:
+            rec.end(span)
         if cache is not None:
             w = cfg.ssm_conv - 1
             if seq_lengths is not None:

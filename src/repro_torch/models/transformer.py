@@ -9,9 +9,17 @@ keeps a list with one dict per period, ``params["layers"][i]["pos0"]
 reference's (``layers.pos0.attn.q_proj``; list indices are not part of it).
 Caches mirror that: a list of ``{"pos<j>": KVCache or SSMCache}`` per
 period.
+
+Each public call reads the process's span recorder slot
+(``telemetry.trace.CURRENT``) once; with a recorder there it runs on a
+``Runtime`` carrying it (``rt.rec``), and records ``embed``, per layer
+(``layer``: its index in the stack) ``attn`` or ``ssm`` and ``mlp`` or
+``moe``, and ``head``, the blocks adding theirs.  With the slot empty no
+span code runs.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -19,6 +27,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, moe, ssm
 from repro_torch.models.config import ArchConfig
+from repro_torch.telemetry import trace as tracing
 
 # A hook applied to each freshly initialised sub-tree with its key path
 # (e.g. ``("layers", 3)`` or ``("lm_head",)``) — used to quantize a layer
@@ -73,22 +82,36 @@ class LM:
         return params
 
     # ------------------------------------------------------------- internals
-    def _embed(self, params: Dict[str, Any],
+    def _embed(self, params: Dict[str, Any], rt: layers.Runtime,
                tokens: Optional[torch.Tensor] = None,
                embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Token embeddings, or the frontend stub's precomputed ``embeds``
         [B, S, d] cast to the model dtype."""
+        rec = rt.rec
+        if rec is not None:
+            span = rec.begin("embed")
         if embeds is not None:
-            return embeds.to(self.cfg.dtype)
-        return params["embed"]["emb"][tokens.to(torch.int64)]
+            x = embeds.to(self.cfg.dtype)
+        else:
+            x = params["embed"]["emb"][tokens.to(torch.int64)]
+        if rec is not None:
+            rec.end(span)
+        return x
 
     def _head(self, params: Dict[str, Any], x: torch.Tensor,
               rt: layers.Runtime, verify_window: bool = False
               ) -> torch.Tensor:
+        rec = rt.rec
+        if rec is not None:
+            span = rec.begin("head")
         x = self._norm(params["final_norm"], x, verify_window)
         if self.cfg.tie_embeddings:
-            return torch.matmul(x, params["embed"]["emb"].T.to(x.dtype))
-        return layers.linear(params["lm_head"], x, rt, "lm_head")
+            y = torch.matmul(x, params["embed"]["emb"].T.to(x.dtype))
+        else:
+            y = layers.linear(params["lm_head"], x, rt, "lm_head")
+        if rec is not None:
+            rec.end(span)
+        return y
 
     @staticmethod
     def _norm(g: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -111,6 +134,7 @@ class LM:
         the caches as the mixers return them (the same objects, written in
         place, except a verify window's per-step stacked SSM caches)."""
         cfg = self.cfg
+        rec = rt.rec
         aux: Optional[torch.Tensor] = None
         new_caches: Optional[List[Dict[str, Any]]] = \
             None if caches is None else []
@@ -119,6 +143,10 @@ class LM:
             for j, (mixer, ff) in enumerate(self.pattern):
                 blk = period[f"pos{j}"]
                 cache = None if caches is None else caches[li][f"pos{j}"]
+                if rec is not None:
+                    layer = li * len(self.pattern) + j
+                    span = rec.begin("attn" if mixer == "attn" else "ssm",
+                                     layer=layer)
                 h = self._norm(blk["mixer_norm"], x, verify_window)
                 if mixer == "attn":
                     out, nc = layers.attention_apply(
@@ -132,8 +160,12 @@ class LM:
                         verify_window=verify_window)
                 x = x + out
                 layer_caches[f"pos{j}"] = nc
+                if rec is not None:
+                    rec.end(span)
                 if ff is None:
                     continue
+                if rec is not None:
+                    span = rec.begin(ff, layer=layer)
                 h2 = self._norm(blk["ff_norm"], x, verify_window)
                 if ff == "mlp":
                     x = x + layers.mlp_apply(blk["mlp"], h2, rt,
@@ -145,6 +177,8 @@ class LM:
                                          verify_window=verify_window)
                     x = x + y
                     aux = a if aux is None else aux + a
+                if rec is not None:
+                    rec.end(span)
             if new_caches is not None:
                 new_caches.append(layer_caches)
         return x, aux, new_caches
@@ -158,8 +192,10 @@ class LM:
         ``tokens`` [B, S] or ``embeds`` [B, S, d].  Returns (logits
         [B, S, V], aux_loss), aux_loss the f32 sum of the MoE layers'
         load-balancing losses (zero without MoE)."""
-        x, aux, _ = self._stack(params, self._embed(params, tokens, embeds),
-                                rt)
+        if tracing.CURRENT is not None:
+            rt = dataclasses.replace(rt, rec=tracing.CURRENT)
+        x, aux, _ = self._stack(params,
+                                self._embed(params, rt, tokens, embeds), rt)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._head(params, x, rt), aux
@@ -201,7 +237,9 @@ class LM:
         logits are gathered at each row's last REAL position.  ``embeds``
         replaces ``tokens`` for a frontend stub.
         Returns (logits [B, 1, V], caches)."""
-        x, _, _ = self._stack(params, self._embed(params, tokens, embeds),
+        if tracing.CURRENT is not None:
+            rt = dataclasses.replace(rt, rec=tracing.CURRENT)
+        x, _, _ = self._stack(params, self._embed(params, rt, tokens, embeds),
                               rt, caches=caches, seq_lengths=seq_lengths)
         if seq_lengths is None:
             last = x[:, -1:]
@@ -220,7 +258,9 @@ class LM:
         cache writes of finished or empty slots; ``embeds`` [B, 1, d]
         replaces ``tokens`` for a frontend stub.
         Returns (logits [B, 1, V], caches)."""
-        x, _, _ = self._stack(params, self._embed(params, tokens, embeds),
+        if tracing.CURRENT is not None:
+            rt = dataclasses.replace(rt, rec=tracing.CURRENT)
+        x, _, _ = self._stack(params, self._embed(params, rt, tokens, embeds),
                               rt, caches=caches, active=active)
         return self._head(params, x, rt), caches
 
@@ -240,7 +280,9 @@ class LM:
         per-step states stacked ([W, B, ...]), from which the engine keeps
         each slot's last accepted step (``serve.slots.select_verify_step``).
         Returns (logits [B, W, V], caches)."""
-        x, _, new_caches = self._stack(params, self._embed(params, tokens),
+        if tracing.CURRENT is not None:
+            rt = dataclasses.replace(rt, rec=tracing.CURRENT)
+        x, _, new_caches = self._stack(params, self._embed(params, rt, tokens),
                                        rt, caches=caches, active=active,
                                        verify_window=True)
         return self._head(params, x, rt, verify_window=True), new_caches

@@ -60,6 +60,16 @@ rounds, overload control and telemetry hooks, and the batch-at-a-time
   duck-typed) receives every lifecycle and dispatch hook; every hook site
   is guarded by ``telemetry is not None``, and the engine itself never
   synchronizes with the device (only a profiling telemetry fences).
+* **Spans** — each step reads the process's recorder slot
+  (``telemetry.trace.CURRENT``) once, and with a recorder there records
+  its ``step``, ``admit``, ``prefill``, ``decode_chunk``, ``decode_step``,
+  ``select``, ``sync`` and ``emit`` spans (the model adds its blocks';
+  names and fields in ``telemetry/trace.py``).  A ``prefill`` or
+  ``decode_chunk`` span is the very interval that
+  ``EngineStats.prefill_seconds`` / ``decode_seconds`` add, one clock read
+  at each end.  An engine with telemetry fills the slot with the
+  telemetry's tracer for each of its steps; with the slot empty no span
+  code runs.
 * **Tensor-parallel serving** — ``mesh=`` (``launch.mesh.make_serve_mesh``)
   makes the engine one rank of an SPMD group: every rank runs the same
   engine on the same requests (host scheduling is deterministic, so each
@@ -102,6 +112,8 @@ from repro_torch.serve.scheduler import (RunningEntry, Scheduler,
                                          SchedulerPolicy, SLOPolicy)
 from repro_torch.spec import sampling as sampling_lib
 from repro_torch.spec import speculate as spec_lib
+from repro_torch.telemetry import trace as tracing
+from repro_torch.telemetry.metrics import format_group_layout
 
 __all__ = ["Request", "Engine", "ServeEngine", "BatchServeEngine",
            "EngineStats", "SuspendedState", "prepare_params", "prepare_tree",
@@ -530,6 +542,8 @@ class ServeEngine(_DeferredErrors):
         # Every hook below is guarded by ``telemetry is not None``: without
         # it the engine takes no hook and makes no device sync.
         self.telemetry = telemetry
+        # The recorder of the step in progress (None outside a step).
+        self._rec: Optional[tracing.Tracer] = None
         if telemetry is not None:
             telemetry.attach_engine(
                 num_slots=max_batch, schedule=self.schedule,
@@ -666,7 +680,7 @@ class ServeEngine(_DeferredErrors):
     def _launches(self) -> int:
         """Kernel launches so far, with a mesh engine's stand-in
         quantizations counted as the launches they replace."""
-        n = sum(_build.LAUNCHES.values())
+        n = _build.launch_total()
         if self._tp is not None:
             n += tp_serve.STANDIN_QUANTS["act_quant"]
         return n
@@ -800,7 +814,10 @@ class ServeEngine(_DeferredErrors):
         assert slot is not None
         kv_migrated = False
         tele = self.telemetry
-        t0 = tele.dispatch_start(self.device) if tele is not None else 0.0
+        t0 = 0.0
+        if tele is not None:
+            tele.dispatch_start(self.device)
+            t0 = tele.wall()
         if self._mixed_kv:
             code = self.schedule.kv_code_for(tier)
             if code != self.schedule.kv_code_for(old):
@@ -1120,10 +1137,19 @@ class ServeEngine(_DeferredErrors):
         logits, _ = self.model.prefill(self.params, self.rt.for_tier(tier),
                                        sub, tokens=tokens,
                                        seq_lengths=lengths)
+        rec = self._rec
+        if rec is not None:
+            span = rec.begin("select")
         tok, _ = self._select(logits[:, -1],
                               *self._sampling_args(slice(slot, slot + 1)),
                               sampled=bool(self._temp[slot] > 0.0))
-        return int(tok[0])
+        if rec is None:
+            return int(tok[0])
+        rec.end(span)
+        span = rec.begin("sync")
+        first = int(tok[0])
+        rec.end(span)
+        return first
 
     def _admit_free_slots(self) -> List[TokenEvent]:
         """Fill free slots from the waiting queue (mixed-tier mode: the
@@ -1158,16 +1184,24 @@ class ServeEngine(_DeferredErrors):
             padded, plen = self._bucket_pad(np.asarray(req.prompt))
             self._load_sampling_state(slot, req, draws=0)
             tele = self.telemetry
-            t1 = tele.dispatch_start(self.device) if tele is not None else 0.0
+            if tele is not None:
+                tele.dispatch_start(self.device)
+            rec = self._rec
             t0 = time.perf_counter()
+            if rec is not None:
+                span = rec.begin("prefill", t=t0, uid=req.uid, tier=req.tier,
+                                 prompt_len=plen, padded_len=padded.shape[1],
+                                 rows=padded.size, ticks=self.clock)
             first = self._prefill_slot(slot, padded, plen, req.tier)
-            self.stats.prefill_seconds += time.perf_counter() - t0
+            t1 = time.perf_counter()
+            self.stats.prefill_seconds += t1 - t0
+            if rec is not None:
+                rec.end(span, t=t1, ticks_end=self.clock)
             self.arena.tiers[slot] = req.tier
             self.stats.prefills += 1
             self.stats.prefill_tokens += plen
             if tele is not None:
-                tele.on_prefill(uid=req.uid, tier=req.tier, prompt_len=plen,
-                                t0=t1, ticks=self.clock, fence=self.device)
+                tele.on_prefill(t0=t0, fence=self.device)
             # The first token was draw event 0 (sampled rows only).
             if self._temp[slot] > 0.0:
                 self._draws[slot] = 1
@@ -1265,18 +1299,35 @@ class ServeEngine(_DeferredErrors):
         remaining = torch.from_numpy(self._remaining).to(dev)
         keys, draws, temp, topk = self._sampling_args()
         sampled = bool((self._temp > 0.0).any())
+        rec = self._rec
+        if rec is not None:
+            groups = tuple(rt.groups) if rt.groups is not None \
+                else ((rt.tier, self.max_batch),)
         rows = []
         for _ in range(n_steps):
+            if rec is not None:
+                step_span = rec.begin("decode_step", rows=self.max_batch,
+                                      groups=groups)
             active = remaining > 0
             logits, _ = self.model.decode_step(
                 self.params, rt, self.arena.caches, tokens=tok[:, None],
                 active=active)
+            if rec is not None:
+                span = rec.begin("select")
             nxt, draws = self._select(logits[:, -1], keys, draws, temp, topk,
                                       sampled, active)
+            if rec is not None:
+                rec.end(span)
             tok = torch.where(active, nxt, tok)
             remaining = remaining - active.to(torch.int32)
             rows += [tok, active.to(torch.int32)]
+            if rec is not None:
+                rec.end(step_span)
+        if rec is not None:
+            span = rec.begin("sync")
         host = torch.stack(rows + [tok, remaining, draws]).cpu().numpy()
+        if rec is not None:
+            rec.end(span)
         toks = host[0:2 * n_steps:2]
         actives = host[1:2 * n_steps:2].astype(bool)
         return (host[-3].copy(), host[-2].copy(), host[-1].copy(), toks,
@@ -1292,23 +1343,41 @@ class ServeEngine(_DeferredErrors):
         run first, between rounds (the only point where a snapshot is
         coherent), so the slots they free are filled by this round's
         admission; ``preempt`` is then refused until the round ends."""
-        if self.schedule is not None and not self.mixed_tiers \
-                and not self.scheduler.occupied():
-            if self._active_tier is not None:     # the batch drained
-                self._last_tier = self._active_tier
-            self._active_tier = None
-        self._time_slice_preempt()
-        self._policy_preempt()
-        self._in_round = True
+        tele = self.telemetry
+        if tele is not None:
+            outer, tracing.CURRENT = tracing.CURRENT, tele.tracer
+        rec = self._rec = tracing.CURRENT
+        if rec is not None:
+            span = rec.begin("step")
+        events: List[TokenEvent] = []
         try:
-            return self._step_round()
+            if self.schedule is not None and not self.mixed_tiers \
+                    and not self.scheduler.occupied():
+                if self._active_tier is not None:     # the batch drained
+                    self._last_tier = self._active_tier
+                self._active_tier = None
+            self._time_slice_preempt()
+            self._policy_preempt()
+            self._in_round = True
+            events = self._step_round()
+            return events
         finally:
             self._in_round = False
             self._sync_telemetry()
+            if rec is not None:
+                rec.end(span, tokens=len(events))
+                self._rec = None
+            if tele is not None:
+                tracing.CURRENT = outer
 
     def _step_round(self) -> List[TokenEvent]:
         """The round body of :meth:`step`: admit, decode, account."""
+        rec = self._rec
+        if rec is not None:
+            span = rec.begin("admit")
         events = self._admit_free_slots()
+        if rec is not None:
+            rec.end(span)
         self._release_done()                       # max_new_tokens == 1 cases
         occupied = self.scheduler.occupied()
         if not occupied:
@@ -1328,12 +1397,21 @@ class ServeEngine(_DeferredErrors):
                     and groups not in self.stats.decode_dispatches:
                 self.stats.decode_dispatches[groups] = \
                     self.decode_dispatch_count(groups=groups)
-        t1 = tele.dispatch_start(self.device) if tele is not None else 0.0
-        ticks0 = self.clock
+        if tele is not None:
+            tele.dispatch_start(self.device)
         t0 = time.perf_counter()
+        if rec is not None:
+            chunk = rec.begin(
+                "decode_chunk", t=t0, ticks=self.clock, n_steps=n_steps,
+                rows=self.max_batch,
+                layout=format_group_layout(groups) if groups else "")
         (self._tok, self._remaining, self._draws, toks,
          actives) = self._decode_chunk(rt, n_steps)
-        self.stats.decode_seconds += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.stats.decode_seconds += t1 - t0
+        if rec is not None:
+            rec.end(chunk, t=t1, ticks_end=self.clock + n_steps,
+                    active_lanes=int(actives.any(axis=0).sum()))
         self.stats.decode_chunks += 1
         self.stats.decode_steps += n_steps
         self.stats.decode_slot_steps += int(actives.sum())
@@ -1356,16 +1434,20 @@ class ServeEngine(_DeferredErrors):
             lanes = [(self.arena.tiers[s], int(actives[:, s].sum()))
                      for s in range(self.max_batch)]
             tele.on_decode_chunk(
-                t0=t1, ticks0=ticks0, ticks_end=self.clock, n_steps=n_steps,
-                lanes=lanes, groups=groups, fence=self.device,
+                t0=t0, n_steps=n_steps, lanes=lanes, groups=groups,
+                fence=self.device,
                 dispatches=self.stats.decode_dispatches.get(groups)
                 if groups is not None else None)
+        if rec is not None:
+            span = rec.begin("emit")
         etier = {s_: self.arena.tiers[s_] for s_, _ in occupied}
         for s in range(n_steps):
             for slot, state in occupied:
                 if actives[s, slot]:
                     events.append(self._emit_token(state, int(toks[s, slot]),
                                                    etier[slot]))
+        if rec is not None:
+            rec.end(span)
         self._release_done()
         self._raise_deferred()
         return events
@@ -1477,16 +1559,22 @@ class ServeEngine(_DeferredErrors):
         rt_draft = self._runtime(draft_tiers)
         rt_verify = self._runtime()
         sampled = bool((self._temp > 0.0).any())
-        tele = self.telemetry
-        t1 = tele.dispatch_start(self.device) if tele is not None else 0.0
-        ticks0 = self.clock
+        n_spec = len(spec_states)
+        tele, rec = self.telemetry, self._rec
+        if tele is not None:
+            tele.dispatch_start(self.device)
         t0 = time.perf_counter()
+        if rec is not None:
+            span = rec.begin("spec_round", t=t0, ticks=self.clock, k=k,
+                             n_spec=n_spec)
         (self._tok, self._remaining, self._draws, dtoks, dact, win, e,
          m) = self._spec_round(k, rt_draft, rt_verify,
                                torch.from_numpy(spec_np).to(self.device),
                                sampled)
-        self.stats.decode_seconds += time.perf_counter() - t0
-        n_spec = len(spec_states)
+        t1 = time.perf_counter()
+        self.stats.decode_seconds += t1 - t0
+        if rec is not None:
+            rec.end(span, t=t1, ticks_end=self.clock + width)
         st = self.stats
         st.decode_chunks += 1
         st.decode_steps += width
@@ -1528,9 +1616,10 @@ class ServeEngine(_DeferredErrors):
             verify_lanes = [(self.arena.tiers[s], 1 if spec_np[s] else 0)
                             for s in range(self.max_batch)]
             tele.on_spec_round(
-                t0=t1, ticks0=ticks0, ticks_end=self.clock, k=k,
-                draft_lanes=draft_lanes, verify_lanes=verify_lanes,
-                fence=self.device, args={"n_spec": n_spec})
+                t0=t0, k=k, draft_lanes=draft_lanes,
+                verify_lanes=verify_lanes, fence=self.device)
+        if rec is not None:
+            span = rec.begin("emit")
         etier = {slot: self.arena.tiers[slot] for slot, _ in occupied}
         for s_i in range(k):
             for slot, state in occupied:
@@ -1541,6 +1630,8 @@ class ServeEngine(_DeferredErrors):
             for j in range(int(e[slot])):
                 events.append(self._emit_token(
                     state, int(win[slot, j]), etier[slot], speculative=True))
+        if rec is not None:
+            rec.end(span)
         self._release_done()
         self._raise_deferred()
         return events
@@ -1699,9 +1790,15 @@ class BatchServeEngine(_DeferredErrors):
         for i, r in enumerate(batch):
             prompts[i, :len(r.prompt)] = r.prompt
             lengths[i] = len(r.prompt)
-        tele = self.telemetry
-        t1 = tele.dispatch_start(self.device) if tele is not None else 0.0
+        tele, rec = self.telemetry, tracing.CURRENT
+        if tele is not None:
+            tele.dispatch_start(self.device)
         t0 = time.perf_counter()
+        if rec is not None:
+            # One batch-wide prefill (uid -1: the whole batch).
+            span = rec.begin("prefill", t=t0, uid=-1, tier=self.tier_name,
+                             prompt_len=int(lengths.sum()), padded_len=plen,
+                             rows=b * plen, ticks=self.clock)
         caches = self.model.init_cache(b, self.max_len, kv_bits=self.kv_bits,
                                        device=self.device)
         logits, caches = self.model.prefill(
@@ -1710,14 +1807,14 @@ class BatchServeEngine(_DeferredErrors):
             seq_lengths=torch.from_numpy(lengths).to(self.device))
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         tok_h = tok.cpu().numpy()
-        self.stats.prefill_seconds += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.stats.prefill_seconds += t1 - t0
+        if rec is not None:
+            rec.end(span, t=t1, ticks_end=self.clock)
         self.stats.prefills += b
         self.stats.prefill_tokens += int(lengths.sum())
         if tele is not None:
-            # One batch-wide prefill (uid -1: the whole batch).
-            tele.on_prefill(uid=-1, tier=self.tier_name,
-                            prompt_len=int(lengths.sum()), t0=t1,
-                            ticks=self.clock, fence=self.device)
+            tele.on_prefill(t0=t0, fence=self.device)
         for i, r in enumerate(batch):
             self.handles[r.uid]._mark_admitted(i, self.clock)
             if tele is not None:
@@ -1727,11 +1824,23 @@ class BatchServeEngine(_DeferredErrors):
             outs=[[] for _ in range(b)], step_idx=0,
             max_new=max(r.max_new_tokens for r in batch))
 
-    @torch.inference_mode()
     def step(self) -> List[TokenEvent]:
         """One batch-wide decode step (forming a new batch when idle): emit
         the current token of every request still owed one, then advance the
-        whole batch.  Returns the emitted tokens; ``[]`` when idle."""
+        whole batch.  Returns the emitted tokens; ``[]`` when idle.  Its
+        ``prefill`` and ``decode_chunk`` spans go to the process's recorder
+        (the telemetry's tracer, with telemetry)."""
+        tele = self.telemetry
+        if tele is None:
+            return self._step()
+        outer, tracing.CURRENT = tracing.CURRENT, tele.tracer
+        try:
+            return self._step()
+        finally:
+            tracing.CURRENT = outer
+
+    @torch.inference_mode()
+    def _step(self) -> List[TokenEvent]:
         if self._active is None:
             if not self._queue:
                 return []
@@ -1751,16 +1860,23 @@ class BatchServeEngine(_DeferredErrors):
                                           defer=self._defer_error)
                 if self.telemetry is not None:
                     self.telemetry.on_token(event, ticks=self.clock)
-        tele = self.telemetry
-        t1 = tele.dispatch_start(self.device) if tele is not None else 0.0
-        ticks0 = self.clock
+        tele, rec = self.telemetry, tracing.CURRENT
+        if tele is not None:
+            tele.dispatch_start(self.device)
         t0 = time.perf_counter()
+        if rec is not None:
+            span = rec.begin("decode_chunk", t=t0, ticks=self.clock,
+                             n_steps=1, rows=len(a.batch), layout="")
         logits, a.caches = self.model.decode_step(
             self.params, self.rt, a.caches,
             tokens=torch.from_numpy(a.tok[:, None]).to(self.device))
         a.tok = torch.argmax(logits[:, -1], dim=-1).to(
             torch.int32).cpu().numpy()
-        self.stats.decode_seconds += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.stats.decode_seconds += t1 - t0
+        if rec is not None:
+            rec.end(span, t=t1, ticks_end=self.clock + 1,
+                    active_lanes=len(a.batch))
         self.stats.decode_steps += 1
         self.stats.decode_chunks += 1
         self.stats.decode_slot_steps += len(a.batch)
@@ -1768,7 +1884,7 @@ class BatchServeEngine(_DeferredErrors):
         if tele is not None:
             # Every lane of the batch runs the step.
             tele.on_decode_chunk(
-                t0=t1, ticks0=ticks0, ticks_end=self.clock, n_steps=1,
+                t0=t0, n_steps=1,
                 lanes=[(self.tier_name, 1) for _ in a.batch],
                 fence=self.device)
             tele.sync_stats(self.stats, queue_depth=len(self._queue))

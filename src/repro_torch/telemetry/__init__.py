@@ -6,8 +6,9 @@ The package is a sensor layer over the engines of
 ``tests/test_torch_telemetry.py``:
 
 * **zero-cost-when-off** — a ``telemetry=None`` engine (the default) runs
-  the decode hot loop with ZERO additional host syncs or hook calls (the
-  module-level :data:`HOOK_CALLS` spy counts every hook entry, and the
+  the decode hot loop with ZERO additional host syncs, hook calls or span
+  calls (the module-level :data:`HOOK_CALLS` spy counts every hook entry,
+  :data:`~repro_torch.telemetry.trace.CURRENT` stays ``None``, and the
   engine itself never synchronizes with the device — only the opt-in
   :class:`~repro_torch.telemetry.profile.DeviceProfiler` does);
 * **bitwise stability when on** — every hook observes after the fact;
@@ -21,8 +22,12 @@ Composition (one object, four concerns):
 * :class:`~repro_torch.telemetry.metrics.MetricsRegistry` — typed
   counters / gauges / fixed-bucket histograms, auto-twinned with
   ``EngineStats``;
-* :class:`~repro_torch.telemetry.trace.Tracer` — dual-clock spans
-  exported as Chrome trace-event JSON (Perfetto-loadable);
+* :class:`~repro_torch.telemetry.trace.Tracer` — the port's one span
+  recorder: engine and model-block spans with parent links on the raw
+  ``perf_counter`` clock (the engine fills the recorder slot with it for
+  each of its steps, so a dispatch is recorded once, by the engine's own
+  span), request lifecycles and engine instants, exported as Chrome
+  trace-event JSON (Perfetto-loadable);
 * :class:`~repro_torch.telemetry.profile.DeviceProfiler` — opt-in
   (``Telemetry(profile=True)``) fenced device timing per dispatch phase;
 * exporters in :mod:`repro_torch.telemetry.export` — Prometheus text, JSON
@@ -135,16 +140,15 @@ class Telemetry:
 
     # ------------------------------------------------------------ plumbing
     def wall(self) -> float:
-        """Wall seconds since the tracer epoch (the span clock)."""
+        """Wall seconds on the span clock (raw ``perf_counter``)."""
         return self.tracer.now()
 
-    def dispatch_start(self, device: Any) -> float:
-        """The span clock at the start of an engine dispatch on ``device``;
-        a profiling telemetry also records the phase's start event there
+    def dispatch_start(self, device: Any) -> None:
+        """Called before an engine dispatch on ``device``: a profiling
+        telemetry records the phase's start event there
         (:meth:`DeviceProfiler.start`)."""
         if self.profiler is not None:
             self.profiler.start(device)
-        return self.wall()
 
     def attach_engine(self, *, num_slots: int, schedule: Any = None,
                       mac_counts: Optional[Mapping[str, float]] = None
@@ -239,50 +243,40 @@ class Telemetry:
             self._requests.pop(uid, None)
 
     # ------------------------------------------------------- dispatch spans
-    def on_prefill(self, *, uid: int, tier: Optional[str], prompt_len: int,
-                   t0: float, ticks: float, fence: Any = None) -> None:
+    # The dispatch's span is the engine's own (``prefill``, ``decode_chunk``,
+    # ``spec_round`` in the tracer); these hooks fence, time and price it.
+    # ``t0`` is the dispatch's start on the span clock.
+    def on_prefill(self, *, t0: float, fence: Any = None) -> None:
         _bump()
-        if self.profiler is not None and fence is not None:
-            self.profiler.fence(fence, "prefill")
-        self.tracer.dispatch(
-            "prefill", t0, ticks=ticks, ticks_end=ticks,
-            args={"uid": uid, "tier": tier, "prompt_len": prompt_len})
         if self.profiler is not None:
+            if fence is not None:
+                self.profiler.fence(fence, "prefill")
             self.profiler.record("prefill", self.wall() - t0)
 
-    def on_decode_chunk(self, *, t0: float, ticks0: float, ticks_end: float,
-                        n_steps: int, lanes: Sequence[Lane],
-                        groups: Any = None, fence: Any = None,
+    def on_decode_chunk(self, *, t0: float, n_steps: int,
+                        lanes: Sequence[Lane], groups: Any = None,
+                        fence: Any = None,
                         dispatches: Optional[int] = None) -> None:
         _bump()
-        if self.profiler is not None and fence is not None:
-            self.profiler.fence(fence, "decode_chunk")
-        layout = format_group_layout(tuple(groups)) if groups else ""
-        self.tracer.dispatch(
-            "decode_chunk", t0, ticks=ticks0, ticks_end=ticks_end,
-            args={"n_steps": n_steps, "layout": layout,
-                  "active_lanes": sum(1 for _, a in lanes if a)})
         self._account(lanes, n_steps)
         if self.profiler is not None:
+            if fence is not None:
+                self.profiler.fence(fence, "decode_chunk")
             self.profiler.record("decode_chunk", self.wall() - t0)
-            if dispatches is not None and layout:
-                self.profiler.record_dispatch_count(layout, dispatches)
+            if dispatches is not None and groups:
+                self.profiler.record_dispatch_count(
+                    format_group_layout(tuple(groups)), dispatches)
 
-    def on_spec_round(self, *, t0: float, ticks0: float, ticks_end: float,
-                      k: int, draft_lanes: Sequence[Lane],
+    def on_spec_round(self, *, t0: float, k: int,
+                      draft_lanes: Sequence[Lane],
                       verify_lanes: Sequence[Lane],
-                      fence: Any = None,
-                      args: Optional[Dict[str, Any]] = None) -> None:
+                      fence: Any = None) -> None:
         _bump()
-        if self.profiler is not None and fence is not None:
-            self.profiler.fence(fence, "spec_round")
-        merged: Dict[str, Any] = {"k": k}
-        merged.update(args or {})
-        self.tracer.dispatch("spec_round", t0, ticks=ticks0,
-                             ticks_end=ticks_end, args=merged)
         self._account(draft_lanes, k)
         self._account(verify_lanes, 1)
         if self.profiler is not None:
+            if fence is not None:
+                self.profiler.fence(fence, "spec_round")
             self.profiler.record("spec_round", self.wall() - t0)
 
     def on_migrate(self, *, uid: int, old_tier: Optional[str],

@@ -12,7 +12,8 @@ and the port's engine, driven by the same code (``DRIVER``), give equal
 streams, statuses, per-uid ticks, suspensions and slots, ``EngineStats``
 counters, telemetry counters and tick-clock series (the wall-clock series,
 ``WALL_SERIES``, are left out) and trace events (their wall-clock ``ts``
-and ``dur`` left out).  Within the port: preempt/resume equals an
+and ``dur`` left out; the port's trace holds the reference's events with
+every field of theirs, and besides them its host spans).  Within the port: preempt/resume equals an
 uninterrupted run for both stores and a sampled request, the guard rails
 hold, and a port of ``tests/test_serve_fuzz.py`` drives seeded
 interleavings of every operation with its invariants checked after each.
@@ -169,8 +170,8 @@ def drive(eng, Request, run):
                               tele.prometheus()).items()
                           if not name.startswith(WALL_SERIES)
                           for labels, value in series.items()),
-        "trace": [[e["tid"], e["name"], e["ph"], e["args"]]
-                  for e in tele.tracer._events],
+        "trace": [[e["tid"], e["name"], e["ph"], e["cat"], e["args"]]
+                  for e in tele.tracer.chrome_events() if e["ph"] != "M"],
     }
 '''
 exec(DRIVER)
@@ -699,12 +700,20 @@ def test_overload_stream_equals_reference_engine(setup, run):
 def test_telemetry_equals_reference_engine(setup, name):
     """Every telemetry counter, gauge and tick-clock histogram (the
     wall-clock ones, ``WALL_SERIES``, left out) and every trace event but
-    its wall-clock time equal the reference engine's."""
+    its wall-clock time equal the reference engine's.  The port's trace
+    also holds the engine's and the model's host spans (category
+    ``host``), and its dispatch spans carry span ids and fields the
+    reference does not record: every event and field of the reference's is
+    there, in the same order."""
     run = next(r for r in RUNS if r["name"] == name)
     got = _port_run(setup, run)
     want = setup["ref"][name]
     assert got["metrics"] == want["metrics"]
-    assert got["trace"] == want["trace"]
+    mine = [ev for ev in got["trace"] if ev[3] != "host"]
+    assert [ev[:4] for ev in mine] == [ev[:4] for ev in want["trace"]]
+    for ev, ref in zip(mine, want["trace"]):
+        assert {k: ev[4].get(k, "missing") for k in ref[4]} == ref[4], ev
+    assert len(mine) < len(got["trace"])
     names = {m[0] for m in got["metrics"]}
     assert {"serve_preemptions", "serve_queue_wait_ticks_bucket",
             "serve_ttft_ticks_sum", "serve_modeled_cycle_utilization"} \

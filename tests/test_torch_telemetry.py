@@ -5,17 +5,27 @@ rendered to the same Prometheus text by both packages, and the two engine
 contracts on the port:
 
 * zero cost when off — a ``telemetry=None`` engine takes no hook
-  (``HOOK_CALLS`` does not move) and makes no device sync
-  (``torch.cuda.synchronize`` and ``torch.cuda.Event`` raise for the whole
-  run), and neither does a non-profiling telemetry;
+  (``HOOK_CALLS`` does not move), makes no span call (the recorder slot
+  stays empty and ``Tracer.begin`` / ``end`` raise) and makes no device
+  sync (``torch.cuda.synchronize`` and ``torch.cuda.Event`` raise for the
+  whole run), and neither does a non-profiling telemetry;
 * identical tokens when on — with ``Telemetry(profile=True)`` the streams
   equal the telemetry-off run's, plain and speculative, and the EngineStats
-  twins, histograms, profiler phases and exports agree with the engine.
+  twins, histograms, profiler phases, spans and exports agree with the
+  engine;
+* the spans — with a recorder in the slot, on the reduced qwen3-8b and
+  mamba2-1.3b: ``step`` holds ``admit`` (its prefills, each with its
+  blocks and ``sync``), ``decode_chunk`` (its decode steps, each with its
+  blocks and ``select``, and its ``sync``) and ``emit``; every span
+  carries the fields the benchmark's readers take, lies inside the clock
+  reads around its step, and the ``prefill`` / ``decode_chunk`` spans add
+  up to ``EngineStats.prefill_seconds`` / ``decode_seconds`` exactly.
 
 The engine tests run on the reduced qwen3-8b with seeded torch weights.
 """
 import dataclasses
 import json
+import time
 
 import numpy as np
 import pytest
@@ -35,6 +45,7 @@ from repro_torch.telemetry import (Histogram, MetricsRegistry, Telemetry,
                                    Tracer, format_group_layout,
                                    parse_prometheus, serve_report,
                                    sync_engine_stats, to_prometheus)
+from repro_torch.telemetry import trace as tracing
 
 TIERS = {"8/8": (8, 8), "4/4": (4, 4), "2/2": (2, 2)}
 KV_TIERS = {"8/8": None, "4/4": 8, "2/2": 4}
@@ -191,11 +202,12 @@ def test_tracer_schema_and_monotone_tracks(tmp_path):
     tr = Tracer()
     tr.request_phase(0, "queued", ticks=0.0)
     tr.request_phase(1, "queued", ticks=0.0)
-    t0 = tr.now()
-    tr.dispatch("prefill", t0, ticks=0.0, ticks_end=0.0, args={"uid": 0})
+    span = tr.begin("prefill", uid=0, ticks=0.0)
+    tr.end(span, ticks_end=0.0)
     tr.request_phase(0, "running", ticks=0.0)
-    tr.dispatch("decode_chunk", tr.now(), ticks=0.0, ticks_end=4.0,
-                args={"n_steps": 4})
+    chunk = tr.begin("decode_chunk", ticks=0.0, n_steps=4)
+    tr.end(tr.begin("decode_step"))
+    tr.end(chunk, ticks_end=4.0)
     tr.engine_instant("preempt", ticks=4.0, args={"uid": 0})
     tr.request_phase(0, "suspended", ticks=4.0)
     tr.request_end(0, "finished", ticks=8.0)
@@ -221,6 +233,13 @@ def test_tracer_schema_and_monotone_tracks(tmp_path):
     for tid, stamps in by_track.items():
         assert stamps == sorted(stamps), f"track {tid} ts not monotone"
     names = {(ev["tid"], ev["name"]) for ev in body}
+    spans = {ev["name"]: ev for ev in body if ev["tid"] == 0
+             and ev["ph"] == "X"}
+    assert spans["decode_step"]["args"]["parent"] == \
+        spans["decode_chunk"]["args"]["id"]
+    assert spans["prefill"]["args"] == {"uid": 0, "ticks": 0.0,
+                                        "ticks_end": 0.0, "parent": 0,
+                                        "id": spans["prefill"]["args"]["id"]}
     for want in [(0, "prefill"), (0, "decode_chunk"), (0, "preempt"),
                  (1, "queued"), (1, "running"), (1, "suspended"),
                  (1, "finished"), (2, "queued"), (2, "shed")]:
@@ -230,22 +249,148 @@ def test_tracer_schema_and_monotone_tracks(tmp_path):
 # ------------------------------------------------------ engine contracts
 @pytest.mark.parametrize("telemetry", [None, "plain"])
 def test_zero_cost_when_off(setup, monkeypatch, telemetry):
-    """No hook without telemetry, and no device sync by the engine without
-    a profiling telemetry."""
+    """No hook and no span call without telemetry (the recorder slot
+    empty), and no device sync by the engine without a profiling
+    telemetry.  A telemetry's engine records into the telemetry's tracer
+    for its own steps and leaves the slot as it found it."""
     model, params, rt = setup
 
     def forbidden(*a, **k):
         raise AssertionError("the engine synchronized with the device")
 
+    def no_span(*a, **k):
+        raise AssertionError("a span call with the recorder slot empty")
+
     monkeypatch.setattr(torch.cuda, "synchronize", forbidden)
     monkeypatch.setattr(torch.cuda, "Event", forbidden)
     tele = Telemetry() if telemetry else None
+    if tele is None:
+        monkeypatch.setattr(Tracer, "begin", no_span)
+        monkeypatch.setattr(Tracer, "end", no_span)
     eng = ServeEngine(model, params, rt, max_batch=3, max_len=64,
                       decode_chunk=4, telemetry=tele, device="cpu")
     before = telemetry_mod.HOOK_CALLS
+    assert tracing.CURRENT is None
     out = eng.run(_requests())
+    assert tracing.CURRENT is None
     assert sum(len(v) for v in out.values()) > 0
     assert (telemetry_mod.HOOK_CALLS == before) == (tele is None)
+    if tele is not None:
+        names = {sp.name for sp in tele.tracer.spans}
+        assert {"step", "prefill", "decode_chunk", "attn", "linear"} <= names
+
+
+# The parent each span name may have.
+PARENTS = {
+    "step": {None}, "admit": {"step"}, "prefill": {"admit"},
+    "decode_chunk": {"step"}, "emit": {"step"},
+    "decode_step": {"decode_chunk"}, "sync": {"prefill", "decode_chunk"},
+    "select": {"prefill", "decode_step"}, "embed": {"prefill", "decode_step"},
+    "head": {"prefill", "decode_step"}, "attn": {"prefill", "decode_step"},
+    "ssm": {"prefill", "decode_step"}, "mlp": {"prefill", "decode_step"},
+    "rope": {"attn"}, "kv_write": {"attn"}, "attn_core": {"attn"},
+    "ssm_core": {"ssm"}, "linear": {"attn", "ssm", "mlp", "head"}}
+# The fields each span name carries (a counter is one).
+FIELDS = {
+    "step": {"tokens"},
+    "prefill": {"tier", "prompt_len", "padded_len", "rows", "ticks",
+                "ticks_end"},
+    "decode_chunk": {"n_steps", "rows", "active_lanes", "layout", "ticks",
+                     "ticks_end"},
+    "decode_step": {"rows", "groups"}, "attn": {"layer"},
+    "ssm": {"layer"}, "mlp": {"layer"},
+    "linear": {"name", "rows", "launches"}}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-1.3b"])
+def test_spans_nest_carry_fields_and_add_up(arch, monkeypatch):
+    """With a recorder in the slot (as a benchmark fills it): the spans
+    nest as the engine's blocks do, carry the fields the readers take,
+    each lies inside the clock reads around its step, the prefill and
+    decode-chunk spans add up to EngineStats' seconds exactly, and the
+    streams equal an unrecorded run's."""
+    model = LM(reduced_config(arch))
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    sched = uniform_schedule(TIERS, backend="cuda")
+    rt = Runtime(policy=sched.policy_for(), schedule=sched)
+    kw = dict(max_batch=3, max_len=64, decode_chunk=4, device="cpu")
+    off = ServeEngine(model, model.init(gen, device="cpu"), rt, **kw)
+    want = off.run(_requests())
+    eng = ServeEngine(model, off.params, rt, **kw)
+    for r in _requests():
+        eng.submit(r)
+    rec = Tracer()
+    monkeypatch.setattr(tracing, "CURRENT", rec)
+    windows = []
+    while eng.has_work:
+        n, t0 = len(rec.spans), time.perf_counter()
+        eng.step()
+        windows.append((n, len(rec.spans), t0, time.perf_counter()))
+    monkeypatch.setattr(tracing, "CURRENT", None)
+    assert eng.results == want
+
+    spans = rec.spans
+    by_id = {sp.id: sp for sp in spans}
+    assert len(by_id) == len(spans) and not rec._open
+    kids = {}
+    for sp in spans:
+        parent = by_id[sp.parent].name if sp.parent else None
+        assert parent in PARENTS[sp.name], (sp.name, parent)
+        assert FIELDS.get(sp.name, set()) <= set(sp.args), sp.name
+        kids.setdefault(sp.parent, []).append(sp)
+        if sp.parent:
+            outer = by_id[sp.parent]
+            assert outer.start <= sp.start <= sp.end <= outer.end
+    for n0, n1, t0, t1 in windows:
+        for sp in spans[n0:n1]:
+            assert t0 <= sp.start <= sp.end <= t1
+        assert spans[n1 - 1].name == "step"
+    names = [sp.name for sp in spans]
+    assert names.count("step") == len(windows)
+    assert names.count("prefill") == eng.stats.prefills == len(want)
+    assert names.count("decode_chunk") == eng.stats.decode_chunks
+    assert names.count("decode_step") == eng.stats.decode_steps
+    mixer = "attn" if arch == "qwen3-8b" else "ssm"
+    core = {"attn": {"rope", "kv_write", "attn_core"}, "ssm": {"ssm_core"}}
+    layers = model.cfg.num_layers
+    uids = set()
+    for sp in spans:
+        below = [c.name for c in kids.get(sp.id, [])]
+        if sp.name == "decode_chunk":
+            assert below.count("decode_step") == sp.args["n_steps"]
+            assert below.count("sync") == 1
+            assert sp.args["rows"] == 3 and sp.args["layout"]
+            assert 0 < sp.args["active_lanes"] <= 3
+            assert sp.args["ticks_end"] - sp.args["ticks"] == \
+                sp.args["n_steps"]
+        elif sp.name in ("decode_step", "prefill"):
+            assert below.count(mixer) == layers
+            assert below.count("embed") == below.count("head") == 1
+            assert below.count("select") == 1
+            assert below.count("sync") == (sp.name == "prefill")
+            if sp.name == "decode_step":
+                assert sp.args["rows"] == 3
+                assert sum(n for _, n in sp.args["groups"]) == 3
+            else:
+                assert sp.args["rows"] == sp.args["padded_len"] \
+                    >= sp.args["prompt_len"]
+                uids.add(sp.uid)
+                assert all(c.uid == sp.uid for c in kids[sp.id])
+        elif sp.name == mixer:
+            assert core[mixer] <= set(below) and "linear" in below
+            assert 0 <= sp.args["layer"] < layers
+        elif sp.name == "linear":
+            assert sp.args["launches"] == 0          # the CPU launches none
+            assert sp.args["name"].endswith("_proj") \
+                or sp.args["name"] == "lm_head"
+    assert uids == set(want)
+    assert sum(sp.end - sp.start for sp in spans
+               if sp.name == "decode_chunk") == eng.stats.decode_seconds
+    assert sum(sp.end - sp.start for sp in spans
+               if sp.name == "prefill") == eng.stats.prefill_seconds
+    assert sum(sp.args["tokens"] for sp in spans if sp.name == "step") == \
+        sum(len(v) for v in want.values())
 
 
 def test_token_identity_mixed_tiers(setup, tmp_path):
@@ -293,6 +438,12 @@ def test_token_identity_mixed_tiers(setup, tmp_path):
     snap = tele.snapshot()
     assert snap["metrics"]["serve_ttft_ticks"]["count"] == n
     assert snap["profile"]["phases"]["prefill"]["calls"] == on.stats.prefills
+    # Each dispatch recorded once, by the engine's own span.
+    spans = [ev for ev in events if ev["ph"] == "X" and ev["tid"] == 0]
+    assert sum(ev["name"] == "prefill" for ev in spans) == on.stats.prefills
+    assert sum(ev["name"] == "decode_chunk" for ev in spans) == \
+        on.stats.decode_chunks
+    assert {ev["cat"] for ev in spans} == {"dispatch", "host"}
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
@@ -313,6 +464,9 @@ def test_token_identity_hybrid_and_moe_archs(arch):
     on = ServeEngine(model, off.params, rt, telemetry=tele, **kw)
     assert on.run(_requests(5)) == want
     assert 0.0 < tele.registry.value("serve_modeled_cycle_utilization") <= 1.0
+    names = {sp.name for sp in tele.tracer.spans}
+    assert ({"ssm", "ssm_core", "moe"} if arch.startswith("jamba")
+            else {"attn", "moe"}) <= names
     prof = tele.profiler.snapshot()
     assert set(prof["decode_dispatches"].values()) == {0}
 
@@ -335,6 +489,16 @@ def test_token_identity_speculative(setup):
         on.stats.spec_accepted / on.stats.spec_drafted)
     assert tele.profiler.snapshot()["phases"]["spec_round"]["calls"] == \
         on.stats.spec_rounds
+    # The round's one span is the parent of its blocks.
+    rounds = {sp.id: sp for sp in tele.tracer.spans
+              if sp.name == "spec_round"}
+    assert len(rounds) == on.stats.spec_rounds
+    assert all(sp.args["k"] == 2 for sp in rounds.values())
+    assert sum(sp.end - sp.start for sp in tele.tracer.spans
+               if sp.name in ("spec_round", "decode_chunk")) == \
+        on.stats.decode_seconds
+    under = {sp.name for sp in tele.tracer.spans if sp.parent in rounds}
+    assert {"embed", "attn", "mlp", "head"} <= under
     assert "speculate: rounds=" in serve_report(reg, speculate=True)
 
 
@@ -365,6 +529,11 @@ def test_batch_engine_with_telemetry(setup):
     prof = tele.profiler.snapshot()["phases"]
     assert prof["prefill"]["calls"] == 2
     assert prof["decode_chunk"]["calls"] == on.stats.decode_steps
+    names = [sp.name for sp in tele.tracer.spans]
+    assert names.count("prefill") == 2
+    assert names.count("decode_chunk") == on.stats.decode_steps
+    assert sum(sp.end - sp.start for sp in tele.tracer.spans
+               if sp.name == "decode_chunk") == on.stats.decode_seconds
     assert tele.registry.value("serve_decode_steps") == \
         float(on.stats.decode_steps)
     assert tele.registry.get("serve_ttft_ticks").count == len(reqs)
