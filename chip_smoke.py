@@ -51,10 +51,12 @@ Phases, in order (any failure exits non-zero and prints no result line):
             superplane store is prepared) with tiers 8/8 4/4 2/2 through the
             ``cuda`` backend; counts every kernel launch of that run, then
             replays the same requests through the plain ``decomposed``
-            backend on the same store, which must launch no kernel, and
-            requires identical token streams.  In between, the same
-            requests are served again with one decode chunk of mixed tiers
-            traced by ``torch.profiler`` (CUDA activity): the device-busy
+            backend on the same store, which must launch no GEMM kernel
+            (decode attention, one launch a layer and decode step, runs on
+            every backend on the card; its count over the run is
+            checked), and requires identical token streams.  In between,
+            the same requests are served again with one decode chunk of
+            mixed tiers traced by ``torch.profiler`` (CUDA activity): the device-busy
             share of the chunk's wall time, the device operations per step
             and the five that took the most time; the next chunk under
             ``cProfile``, with the calls of ``Tensor.index_select`` and
@@ -81,9 +83,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
             (``torch.profiler``).  Then, at 4
             layers of the same width: each of those three runs again on
             ``cuda`` and on the plain ``decomposed`` backend (which must
-            launch nothing) with equal streams, the sampled run without
-            speculation at max_batch 3 with equal streams, and the verify
-            window position by position against sequential decode steps,
+            launch no GEMM kernel) with equal streams, the sampled run
+            without speculation at max_batch 3 with equal streams, and the
+            verify window position by position against sequential decode steps,
             logits and arena bit-equal, for both stores.
 4c. tiers   per-request KV precision on the phase-3 model (full-width
             qwen3-8b, 36 layers, seed 0, int8 planes, max_batch 8, the
@@ -120,7 +122,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             and the spill's write and read.  (c) The same with
             ``Telemetry(profile=True)``: equal streams; prints the
             profiler's decode-chunk wall and device seconds and
-            ``decode_dispatch_count`` of every layout, which must be 398;
+            ``decode_dispatch_count`` of every layout, which must be 434;
             writes the Prometheus text and the Chrome trace to the
             git-ignored ``build/overload/``.  (b) ``SLOPolicy(preempt, shed,
             tenant_weights={"a": 2.0}, time_slice=2)`` on the shape of the
@@ -130,8 +132,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
             FINISHED stream equals an uninterrupted run's, with sheds and
             time-slice preemptions; prints the counters.
             (d) At 4 layers, for both stores: (a) and (c) on ``cuda`` and on
-            the plain ``decomposed`` backend, which must launch nothing,
-            with equal streams.
+            the plain ``decomposed`` backend, which must launch no GEMM
+            kernel, with equal streams.
 4e. archs   the SSM, hybrid and MoE layers, seeded torch weights, tiers
             8/8 4/4 2/2, max_batch 8, 9 requests of 16 tokens (prompts of
             16-64).  (a) mamba2-1.3b at full width and depth (48 layers):
@@ -218,16 +220,16 @@ Phases, in order (any failure exits non-zero and prints no result line):
             rank's heads (2 and 4 ranks, KV heads sharded and the MQA
             head replicated; decode against bf16, int8 and mixed arenas,
             prefill at every prompt bucket of phase 3 and at 2048 tokens)
-            must equal the same heads of the whole call bit for bit (each
-            rank computes at the whole head count, its heads among zero
-            heads); prints decode attention's ms unsharded and for one
-            of 2 ranks.  (a) full-width, full-depth
-            qwen3-8b on 2 ranks, int8 planes, tiers 8/8 4/4 2/2: each rank
+            must equal the same heads of the whole call bit for bit (a
+            rank's decode runs the kernel on its heads alone, its prefill
+            at the whole head count, its heads among zero heads); prints
+            decode attention's ms unsharded and for one of 2 ranks.  (a)
+            full-width, full-depth qwen3-8b on 2 ranks, int8 planes, tiers 8/8 4/4 2/2: each rank
             builds the full store in turn and keeps its shard before the
             next builds; phase 3's nine requests give phase 3's streams on
             every rank, kernels 1-4 launch (their counts per rank are the
             kernel line's ``tp``), ``decode_dispatch_count`` equals the
-            unsharded graph's (398) at a three-tier and a one-tier layout,
+            unsharded graph's (434) at a three-tier and a one-tier layout,
             and one decode step's code and output bytes on the wire equal
             ``decode_wire_stats``; prints each rank's store bytes, build
             and serving peaks, launches and decode-step ms.  (b) 4 ranks at
@@ -293,12 +295,15 @@ Phases, in order (any failure exits non-zero and prints no result line):
             cache 128) and (d) its prefill of 2 x 3072 tokens, three
             flash-attention K/V blocks.  Each card step is the meta
             cell's own, built on the card by ``dryrun.build_cell``.
-            Launches no hand-written kernel (asserted).
+            (c)'s card step launches decode attention once a layer, whose
+            products ``FlopCounterMode`` cannot see: the plain version's
+            (4 * B * H * Smax * Dh a layer, the count on meta) are added
+            to the card's.  No other hand-written kernel (asserted).
 4k. examples the five example scripts of the port
             (``examples/*_torch.py``).  (a) Each one's ``main`` on the card
             at its published size, as a user runs it, held against its
             replay on the plain ``decomposed`` backend on the card (which
-            must launch nothing): quickstart's int32 accumulators and
+            must launch no GEMM kernel): quickstart's int32 accumulators and
             outputs at w2/w3/w4/w6/w8 (kernels 1 and 3 on the fixed-width
             Table-I planes: w3 is one signed 3-bit plane, w6 three)
             bit-equal; serve_quantized (reduced qwen3-8b, w4a8, int8 KV,
@@ -317,7 +322,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
             kernel 3 on the fixed-width planes of an MLP projection and the
             head at every width against its plain version.  The launches of
             (a)'s mains and (b)'s ``cuda`` evaluations are the kernel
-            line's ``examples`` counts: kernels 1 and 3 only.
+            line's ``examples`` counts: kernels 1 and 3 (and decode
+            attention, serve_quantized's decode steps).
 5. fixed    the quickstart form, --w-bits 4 with the int8 KV cache and
             then the int4 one (--kv-bits 8, 4; LSB-first planes), at full
             width with the depth cut to 4 layers; for each, the ``cuda``
@@ -346,6 +352,19 @@ Phases, in order (any failure exits non-zero and prints no result line):
             (w2, w3, w4, w6, w8: P = 1, 1, 2, 3, 4) at M = 512, K x N =
             4096 x 12288 and the head (4096 x 152064), beside
             ``torch._int_mm`` on the recomposed weight.
+7. attention the decode-attention kernel (kernel 7; it replaces no TPU
+            kernel) at the benchmark's qwen3-8b arenas: reason-decode's
+            (64 slots of 2048) and rag-prefill's (32 of 3328), 32 query
+            heads of 128 over 8 KV heads, slot lengths drawn as the mixes
+            in ``bench/traffic/`` draw them.  Against its plain version
+            (``KVCache.read`` + ``layers._decode_core``) within the
+            tolerance its sums' order sets, every storage mode at
+            reason's arena; then timed on the bf16 arena (the cells') with
+            a cold L2, beside its byte bound (each slot's K and V up to its
+            length read once), the plain version's ms and
+            ``scaled_dot_product_attention``'s (the library yardstick; the
+            port never calls it).  Prints phase 3's decode-attention
+            launches against its decode steps (one a layer and step).
 
 The script takes no arguments.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the one before it the card's name and
@@ -948,16 +967,23 @@ def _serve(engine, reqs, label: str) -> dict:
     return {"stats": res, "tokens": out}
 
 
+def _gemm_launches(launches: dict) -> dict:
+    """The launches of every kernel but decode attention, which every
+    backend runs on the card (the plain backends replace the GEMMs)."""
+    return {k: v for k, v in launches.items() if k != "decode_attention"}
+
+
 def _check_plain(label: str, ref: dict, res: dict) -> None:
-    """The plain replay launched no kernel and gave the same streams."""
-    if any(ref["stats"]["launches"].values()):
+    """The plain replay launched no GEMM kernel and gave the same
+    streams."""
+    if any(_gemm_launches(ref["stats"]["launches"]).values()):
         raise AssertionError(f"{label}: the plain backend launched kernels: "
                              f"{ref['stats']['launches']}")
     if ref["tokens"] != res["tokens"]:
         raise AssertionError(f"{label}: cuda streams differ from the plain "
                              "backend's")
     log(f"[{label}] {len(res['tokens'])} streams identical to the plain "
-        "decomposed backend's, which launched no kernel")
+        "decomposed backend's, which launched no GEMM kernel")
 
 
 def _check_streams(label: str, out, reqs, vocab: int) -> None:
@@ -1031,6 +1057,14 @@ def phase_mixed() -> dict:
                     unused=("packed_bitserial_matmul", "grouped_matmul"))
     if eng.stats.mixed_tier_chunks == 0:
         raise AssertionError("no decode chunk mixed tiers")
+    attn = res["stats"]["launches"]["decode_attention"]
+    if attn != cfg.num_layers * res["stats"]["decode_steps"]:
+        raise AssertionError(f"mixed: {attn} decode-attention launches, "
+                             f"not one a layer and decode step ("
+                             f"{cfg.num_layers} x "
+                             f"{res['stats']['decode_steps']})")
+    log(f"[mixed] decode attention: {attn} launches = {cfg.num_layers} "
+        f"layers x {res['stats']['decode_steps']} decode steps")
     _profile_chunk(eng, reqs)
     del eng
     plain = uniform_schedule(tiers, backend="decomposed")
@@ -1692,7 +1726,7 @@ def phase_tiers(mixed: dict, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     # At 4 layers: the migration, and (a) to (c) replayed on the plain
-    # backend, which must launch nothing.
+    # backend, which must launch no GEMM kernel.
     cfg4, model4, params4 = _build_model(4, sched.prepare_policy(),
                                          superplane=True, seed=0)
     log("[tiers-4] depth cut: 4 of qwen3-8b's 36 layers")
@@ -2021,7 +2055,7 @@ def phase_overload(tiers: dict, card: str) -> dict:
                 "the preemption run's without telemetry")
     prof = tele.profiler.snapshot()
     counts = prof["decode_dispatches"]
-    step_launches = (4 * layers + 1) + (7 * layers + 1)
+    step_launches = (4 * layers + 1) + (7 * layers + 1) + layers
     if not counts or set(counts.values()) != {step_launches} or not any(
             label.count("+") == 2 for label in counts):
         raise AssertionError(f"decode_dispatch_count per layout: {counts}, "
@@ -2073,7 +2107,8 @@ def phase_overload(tiers: dict, card: str) -> dict:
                                       telemetry=t)
             _check_same(f"{label}-{name}-telemetry", again["tokens"],
                         runs[name]["tokens"], "the run without telemetry")
-            if name == "plain" and any(again["launches"].values()):
+            if name == "plain" and any(
+                    _gemm_launches(again["launches"]).values()):
                 raise AssertionError(f"{label}: the plain run with "
                                      "telemetry launched kernels")
         _check_plain(label, {"stats": {"launches": runs["plain"]["launches"]},
@@ -2121,9 +2156,10 @@ def _dispatches_per_step(cfg) -> int:
     """Kernel launches of one mixed-tier decode step, from the code: two
     (kernel 2's act-quant, kernel 4's GEMM) per projection input and one
     kernel 4 per further projection reading it (q/k/v share one
-    act-quant, and so do an MLP's or an expert's gate and up), plus the
-    head's two.  Every expert runs every step (capacity dispatch)."""
-    per = {"attn": 6, "mamba": 4, "mlp": 5, None: 0,
+    act-quant, and so do an MLP's or an expert's gate and up), one decode
+    attention per attention layer, plus the head's two.  Every expert
+    runs every step (capacity dispatch)."""
+    per = {"attn": 7, "mamba": 4, "mlp": 5, None: 0,
            "moe": 5 * cfg.num_experts + (5 if cfg.shared_expert else 0)}
     return cfg.n_periods * sum(per[m] + per[f]
                                for m, f in cfg.period_pattern()) + 2
@@ -3325,8 +3361,10 @@ def _head_slices() -> dict:
     bf16, int8 and mixed arena; prefill at every prompt bucket of phase
     3, and a 2048-token prompt: two K/V blocks), at qwen3-8b's shapes for
     2 and 4 ranks, KV heads sharded and replicated (MQA), each rank's call
-    given its ``TPConfig`` as ``attention_apply`` gives it; and decode
-    attention's ms unsharded beside one of 2 ranks' calls."""
+    given its ``TPConfig`` as ``attention_apply`` gives it (decode runs
+    the kernel on the rank's heads alone: its sums' order depends on the
+    slot's length only); and decode attention's ms unsharded beside one of
+    2 ranks' calls."""
     import torch
 
     from repro_torch.distributed import tp_serve
@@ -3396,7 +3434,8 @@ def _head_slices() -> dict:
                                                        tp=tp(2, 0, 8)), flush)
     log(f"[tp] (c) {cases} head-slice cases bit-equal; decode attention "
         f"(B {b}, S {s}, 32 heads, 8 KV heads) {ms:.4f} ms unsharded, "
-        f"{rank_ms:.4f} ms for one of 2 ranks (its heads among zero heads)")
+        f"{rank_ms:.4f} ms for one of 2 ranks (decode: the kernel on its "
+        f"heads alone, read in place; prefill: among zero heads)")
     return {"cases": cases, "decode_attention_ms": ms,
             "rank_decode_attention_ms": rank_ms}
 
@@ -3970,9 +4009,15 @@ DRYRUN_PREFILL = ("qwen3-8b", 3072, 2)
 def _meta_and_card(arch, shape, *, mesh, reduced: bool = False,
                    moment_dtype: str = "bfloat16") -> dict:
     """``dryrun.run_cell`` on meta and ``FlopCounterMode`` over the same
-    cell's step built on the card by ``dryrun.build_cell``."""
+    cell's step built on the card by ``dryrun.build_cell``, plus the
+    products of the plain decode attention that the card's kernel
+    replaces (two batched products of 2 * B * H * Smax * Dh a layer,
+    which ``FlopCounterMode`` counts on meta and cannot see in a
+    launch)."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import _build
     from repro_torch.launch import dryrun
     kw = dict(reduced=reduced, mesh=mesh, moment_dtype=moment_dtype)
     t0 = time.perf_counter()
@@ -3982,15 +4027,24 @@ def _meta_and_card(arch, shape, *, mesh, reduced: bool = False,
                                 w_bits=4, a_bits=8, kv_bits=None,
                                 device="cuda", **kw)
     t0 = time.perf_counter()
+    before = _build.LAUNCHES["decode_attention"]
     with FlopCounterMode(display=False) as counter:
         cell.step(*cell.args, **cell.kwargs)
     sync()
     real_s = time.perf_counter() - t0
-    if res["flops"] != counter.get_total_flops():
+    attn = _build.LAUNCHES["decode_attention"] - before
+    card = counter.get_total_flops()
+    if attn:
+        cfg = arch if not isinstance(arch, str) else (
+            reduced_config(arch) if reduced else get_config(arch))
+        card += attn * 4 * res["global_batch"] * cfg.num_heads * \
+            res["seq_len"] * cfg.head_dim
+    if res["flops"] != card:
         raise AssertionError(f"dryrun: {res['arch']} {res['shape']} counts "
-                             f"{res['flops']} flops on meta, "
-                             f"{counter.get_total_flops()} on the card")
-    return {"cell": res, "meta_s": meta_s, "real_s": real_s}
+                             f"{res['flops']} flops on meta, {card} on the "
+                             f"card ({attn} decode-attention launches)")
+    return {"cell": res, "meta_s": meta_s, "real_s": real_s,
+            "attention_launches": attn}
 
 
 def phase_dryrun(train: dict, card: str) -> dict:
@@ -4051,7 +4105,9 @@ def phase_dryrun(train: dict, card: str) -> dict:
     log(f"[dryrun] (c) reduced {DRYRUN_DECODE[0]} decomposed decode step, "
         f"batch {dec['cell']['global_batch']}, cache "
         f"{dec['cell']['seq_len']}: {dec['cell']['flops']:.0f} flops on "
-        f"meta == FlopCounterMode over one step on the card")
+        f"meta == FlopCounterMode over one step on the card + the plain "
+        f"products of its {dec['attention_launches']} decode-attention "
+        f"launches")
     # (d)
     arch, seq, batch = DRYRUN_PREFILL
     pre = _meta_and_card(arch, ShapeSpec("prefill_3k", "prefill", seq, batch),
@@ -4061,7 +4117,8 @@ def phase_dryrun(train: dict, card: str) -> dict:
         f"{pre['cell']['flops']:.0f} flops on meta == FlopCounterMode over "
         f"one step on the card")
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-    if any(launched.values()):
+    if any(_gemm_launches(launched).values()) or \
+            launched["decode_attention"] != dec["attention_launches"]:
         raise AssertionError(f"dryrun: launched kernels {launched}")
     return {"cells": cells, "train": {"flops": cell["flops"],
                                       "bound_ms": bound_ms,
@@ -4089,8 +4146,8 @@ def _example(name: str):
 
 
 def _on_path(label: str, fn, total: dict):
-    """``fn()`` with its launches counted (kernels 1 and 3 only) and added
-    to the path's ``total``."""
+    """``fn()`` with its launches counted (kernels 1 and 3, and decode
+    attention) and added to the path's ``total``."""
     out, res = _profiled(label, fn, EXAMPLES_USED, EXAMPLES_UNUSED)
     for k, v in res["launches"].items():
         total[k] = total.get(k, 0) + v
@@ -4098,7 +4155,8 @@ def _on_path(label: str, fn, total: dict):
 
 
 def _plain(label: str, fn):
-    """``fn()`` on the plain ``decomposed`` backend: launches nothing."""
+    """``fn()`` on the plain ``decomposed`` backend: launches no GEMM
+    kernel (decode attention is not in ``KERNELS``)."""
     return _profiled(label, fn, (), tuple(KERNELS))
 
 
@@ -4677,6 +4735,137 @@ def phase_times() -> dict:
     return {"rows": rows, "launch_floor_ms": floor}
 
 
+# ------------------------------------------------------------ phase 7
+# The benchmark's qwen3-8b cells that run decode attention: (traffic mix,
+# max_batch, max_len), and qwen3-8b's heads (query heads, KV heads, size).
+ATTN_CELLS = (("reason-decode", 64, 2048), ("rag-prefill", 32, 3328))
+ATTN_HEADS = (32, 8, 128)
+
+
+def _mix_lengths(traffic: str, b: int, smax: int, seed: int):
+    """Slot lengths as the benchmark's mix draws its requests
+    (``bench/traffic/<traffic>.json``): ``b`` prompts and ``b`` answers at
+    the stratified quantiles of their clipped log-normals, shuffled, each
+    slot a uniform part of the way through its answer."""
+    import numpy as np
+    spec = json.loads((ROOT / "bench" / "traffic" / f"{traffic}.json")
+                      .read_text())
+    rng = np.random.default_rng(seed)
+    nd = statistics.NormalDist()
+    z = np.array([nd.inv_cdf((i + 0.5) / b) for i in range(b)])
+
+    def draw(d):
+        x = np.clip(np.rint(d["median"] * np.exp(d["sigma"] * z)), d["min"],
+                    d["max"]).astype(np.int64)
+        return rng.permutation(x)
+    n = draw(spec["prompt"]) + np.floor(
+        rng.random(b) * draw(spec["output"])).astype(np.int64)
+    return np.minimum(n, smax)
+
+
+def _attention_within(got, q, cache) -> float:
+    """Largest |kernel - plain| over its tolerance (must be <= 1): 2^-7
+    |plain| + (2^-8 + Smax 2^-23) sum_t p_t |v_t| (each bf16 probability
+    may round the other way, the f32 sums reorder, the output rounds)."""
+    import torch
+    from repro_torch.models import layers
+    k, v = cache.read(torch.bfloat16)
+    want = layers._decode_core(q, k, v, length=cache.length)
+    b, _, h, dh = q.shape
+    kvh, smax = k.shape[2], k.shape[1]
+    sc = torch.einsum("bkgd,bskd->bkgs", q.float().reshape(b, kvh, -1, dh),
+                      k.float()) / dh ** 0.5
+    valid = torch.arange(smax, device=q.device)[None] < cache.length[:, None]
+    p = torch.softmax(sc.masked_fill(~valid[:, None, None], layers.NEG), -1)
+    mag = torch.einsum("bkgs,bskd->bkgd", p, v.float().abs())
+    tol = want.float().abs() * 2 ** -7 + \
+        mag.reshape(b, 1, h, dh) * (2 ** -8 + smax * 2 ** -23)
+    return ((got.float() - want.float()).abs() / tol.clamp_min(1e-30)
+            ).max().item()
+
+
+def phase_attention(mixed: dict) -> dict:
+    """Phase 7: the decode-attention kernel at the benchmark's qwen3-8b
+    shapes; see the module docstring."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as dattn
+    from repro_torch.models import layers
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    h, kvh, dh = ATTN_HEADS
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    rows = []
+    for traffic, b, smax in ATTN_CELLS:
+        n = torch.from_numpy(_mix_lengths(traffic, b, smax, 7)).to(
+            torch.int32).cuda()
+        q = torch.randn((b, 1, h, dh), device="cuda", generator=gen).to(
+            torch.bfloat16)
+        worst = {}
+        for kv_bits in ((None, 8, 4, (16, 8, 4)) if b == 64 else (None,)):
+            cache = layers.KVCache.create(b, smax, kvh, dh, kv_bits=kv_bits,
+                                          device="cuda")
+            if cache.mixed:
+                cache.kv_bits.copy_(torch.tensor(
+                    [(16, 8, 4)[i % 3] for i in range(b)], dtype=torch.int32))
+            cache.update(*(torch.randn((b, smax, kvh, dh), device="cuda",
+                                       generator=gen).to(torch.bfloat16)
+                           for _ in range(2)), 0, new_length=n)
+            before = _build.LAUNCHES["decode_attention"]
+            worst[str(kv_bits)] = _attention_within(
+                dattn.decode_attention(q, cache), q, cache)
+            if _build.LAUNCHES["decode_attention"] != before + 1 or \
+                    worst[str(kv_bits)] > 1.0:
+                raise AssertionError(f"attention: {traffic} kv_bits "
+                                     f"{kv_bits}: {worst}")
+        # Timed on a bf16 arena, the cells': at reason's shape the loop
+        # ended on the mixed one.
+        if cache.mixed:
+            cache = layers.KVCache.create(b, smax, kvh, dh, device="cuda")
+            cache.update(*(torch.randn((b, smax, kvh, dh), device="cuda",
+                                       generator=gen).to(torch.bfloat16)
+                           for _ in range(2)), 0, new_length=n)
+        ms = _time_ms(lambda: dattn.decode_attention(q, cache), flush)
+        plain_ms = _time_ms(lambda: layers._decode_core(
+            q, *cache.read(torch.bfloat16), length=cache.length), flush,
+            reps=5, warm=1)
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (cache.k, cache.v))
+        mask = (torch.arange(smax, device="cuda")[None] <
+                n[:, None])[:, None, None, :]
+        qt = q.transpose(1, 2)
+        try:
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                           enable_gqa=True)
+            lib = (lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        except TypeError:          # no enable_gqa: heads expanded first
+            kt, vt = (t.repeat_interleave(h // kvh, 1) for t in (kt, vt))
+            lib = (lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+        library_ms = _time_ms(lib, flush)
+        del kt, vt
+        nbytes = int(n.sum()) * kvh * dh * 2 * 2 + 2 * b * h * dh * 2 + 4 * b
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        mean = float(n.float().mean())
+        row = {"shape": f"{traffic}: B={b} Smax={smax} H={h} KVH={kvh} "
+                        f"Dh={dh} bf16, lengths mean {mean:.1f} max "
+                        f"{int(n.max())}",
+               "ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "share_of_bound": bound_ms / ms, "within": worst}
+        log("[attention] " + json.dumps(row))
+        rows.append(row)
+        del cache, q
+        torch.cuda.empty_cache()
+    steps = mixed["decode_steps"]
+    launches = mixed["launches"]["decode_attention"]
+    log(f"[attention] phase 3's run: {launches} launches over {steps} "
+        f"decode steps ({launches / steps:.0f} a step)")
+    return {"rows": rows, "launches": launches, "decode_steps": steps}
+
+
 # ------------------------------------------------------------------ main
 # The shape each kernel's summary entry reports: its heaviest serving shape
 # on the path that runs it (prefill M=64 for act_quant and the shift GEMMs,
@@ -4727,7 +4916,8 @@ def main() -> int:
                            out["train"]["full"], out["build"]["card"])),
                        ("examples", lambda: phase_examples(
                            out["build"]["card"])),
-                       ("fixed", phase_fixed), ("times", phase_times)):
+                       ("fixed", phase_fixed), ("times", phase_times),
+                       ("attention", lambda: phase_attention(out["mixed"]))):
         t = time.perf_counter()
         out[phase] = run()
         sync()
@@ -4763,6 +4953,12 @@ def main() -> int:
                 **{key: tp[key] for key in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "shape")}}
         kernels.append(entry)
+    attn = out["attention"]
+    kernels.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": None, "launches": attn["launches"], "path": "mixed",
+        "decode_steps": attn["decode_steps"], "rows": attn["rows"]})
     print(json.dumps({"kernels": kernels}))
     print(out["build"]["card"])
     print(json.dumps({"ok": True, "device": {

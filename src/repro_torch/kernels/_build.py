@@ -43,6 +43,7 @@ SIGNATURES: Dict[str, str] = {
     "grouped_matmul_u8": "p" * 6 + "i" * 13,
     "grouped_dequant_matmul_s8": "p" * 9 + "i" * 11,
     "grouped_dequant_matmul_u8": "p" * 9 + "i" * 13,
+    "decode_attention": "p" * 8 + "i" * 22,
 }
 
 # Launch counts per kernel: each wrapper adds one where it launches its
@@ -50,7 +51,7 @@ SIGNATURES: Dict[str, str] = {
 LAUNCHES: Dict[str, int] = {
     "act_quant": 0, "act_quant_rows": 0, "bitserial_matmul": 0,
     "grouped_dequant_matmul": 0, "packed_bitserial_matmul": 0,
-    "grouped_matmul": 0}
+    "grouped_matmul": 0, "decode_attention": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
@@ -152,12 +153,20 @@ def lib() -> ctypes.CDLL:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry point ``name`` on ``device``'s current stream; tensors
-    pass as their data pointers.  Raises if the launch reports an error."""
+    pass as their data pointers.  Raises if the launch reports an error.
+    The stream is read raw (no ``torch.cuda.Stream`` object is made), and
+    the current device is switched only when it is not ``device``: the
+    host runs this once a launch, hundreds of times a decode step."""
     handle = lib()
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if torch.cuda.current_device() == index:
         err = getattr(handle, name)(*conv, stream)
+    else:
+        with torch.cuda.device(index):
+            err = getattr(handle, name)(*conv, stream)
     if err != 0:
         msg = handle.repro_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({err})")

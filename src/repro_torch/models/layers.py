@@ -10,7 +10,10 @@ and no copy of the cache is ever made.
 Float work follows the reference's dtypes and rounding points: rmsnorm
 rounds ``x * inv`` (then ``* g``) in bf16, attention scores and softmax
 are f32 with probabilities cast to bf16 before the PV product, and the MLP
-computes silu in f32 before casting to bf16.
+computes silu in f32 before casting to bf16.  Decode attention on the
+card is one hand-written kernel per layer
+(``kernels/decode_attention.py``) with those rounding points; the plain
+version beside it serves every other device.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ from repro_torch.core.policy import (INTEGER_BACKENDS, LayerPrecision,
                                      PrecisionPolicy, PrecisionSchedule)
 from repro_torch.distributed import tp_serve
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels.decode_attention import \
+    decode_attention as decode_attention_kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -585,8 +590,20 @@ def decode_attention(q: torch.Tensor, cache: KVCache, *,
                      tp=None) -> torch.Tensor:
     """Single-step attention against a cache. q: [B, 1, H, Dh].  Grouped
     (kvh, g) form: scores in f32 from bf16 operands, per-slot length mask,
-    probabilities cast to bf16 before the PV product (f32 accumulation).
-    ``tp``: this rank's heads, see :func:`_as_unsharded`."""
+    m and l over the whole slot, probabilities ``bf16(exp(s - m) / l)``
+    before the PV product (f32 accumulation), the output in bf16.
+
+    A CUDA tensor launches the hand-written kernel
+    (``kernels.decode_attention``: one launch, the cache read in place up
+    to each slot's length, ``_build.LAUNCHES["decode_attention"]``) or
+    raises.  Its sums run in an order fixed by each slot's length alone,
+    so a rank's heads equal the same heads of the whole call and need no
+    zero heads: ``tp`` is not used there.  Any other tensor takes the plain
+    version, :meth:`KVCache.read` and :func:`_decode_core`, with ``tp``
+    (this rank's heads) computed among zero heads, see
+    :func:`_as_unsharded`."""
+    if q.device.type == "cuda":
+        return decode_attention_kernel(q, cache)
     k, v = cache.read(q.dtype)
     return _as_unsharded(_decode_core, q, k, v, tp, length=cache.length)
 
@@ -659,7 +676,9 @@ def attention_apply(params: Dict[str, Any], x: torch.Tensor, rt: Runtime,
     sequential decode step.  Under ``rt.rec`` the path outside a verify
     window records ``rope`` (q and k), ``kv_write`` (the cache append or
     update) and ``attn_core`` (the cache read, the products and the
-    softmax).  Returns (out, cache)."""
+    softmax; ``launches``: the hand-written kernels it launched, one
+    decode-attention launch for a decode step on the card, none on the
+    CPU or in a prefill).  Returns (out, cache)."""
     b, s, _ = x.shape
     h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if rt.tp is not None:
@@ -720,6 +739,7 @@ def attention_apply(params: Dict[str, Any], x: torch.Tensor, rt: Runtime,
         if rec is not None:
             rec.end(span)
             span = rec.begin("attn_core")
+            launched = _build.launch_total()
         if s == 1:
             out = decode_attention(q, cache, tp=rt.tp)
         else:
@@ -729,6 +749,7 @@ def attention_apply(params: Dict[str, Any], x: torch.Tensor, rt: Runtime,
     else:
         if rec is not None:
             span = rec.begin("attn_core")
+            launched = _build.launch_total()
         if rt.groups is not None and len(rt.groups) > 1:
             # Each row group of a mixed-tier layout attends as a batch of
             # its own, so its bits equal a forward of that group alone: the
@@ -741,7 +762,7 @@ def attention_apply(params: Dict[str, Any], x: torch.Tensor, rt: Runtime,
         else:
             out = flash_attention(q, k, v, causal=True, tp=rt.tp)
     if rec is not None:
-        rec.end(span)
+        rec.end(span, launches=_build.launch_total() - launched)
     out = out.reshape(b, s, h * dh)
     return linear(params["o_proj"], out, rt, f"{name}.o_proj"), cache
 

@@ -34,10 +34,11 @@ set when the span ends (a projection's kernel ``launches``).  The names:
   their callbacks);
 * model, under ``prefill``, ``decode_step`` or ``spec_round``: ``embed``;
   per layer (``layer``) ``attn``, holding ``rope``, ``kv_write`` and
-  ``attn_core``, or ``ssm``, holding ``ssm_core``; then ``mlp`` or
-  ``moe``; ``head``; the engine's ``select``; and around every quantized
-  projection a ``linear`` (``name``, ``rows``, ``launches``: the
-  hand-written kernels it launched, the ``_build.LAUNCHES`` delta).
+  ``attn_core`` (``launches``: the decode-attention kernel's one launch
+  in a decode step on the card), or ``ssm``, holding ``ssm_core``; then
+  ``mlp`` or ``moe``; ``head``; the engine's ``select``; and around every
+  quantized projection a ``linear`` (``name``, ``rows``, ``launches``:
+  the hand-written kernels it launched, the ``_build.LAUNCHES`` delta).
 
 **Tracks** (one Chrome *thread* each, all in pid 1):
 

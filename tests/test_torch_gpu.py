@@ -1,8 +1,10 @@
 """repro_torch on a CUDA card: every kernel wrapper launches its kernel for
-a CUDA tensor (and counts it), equals its plain version bit for bit, and
-refuses what the kernel does not take; a reduced engine serves through
-the kernels.  Needs no jax.  Every test is marked ``gpu`` and skips
-without a card (decided in the ``gen`` fixture); on the card:
+a CUDA tensor (and counts it), equals its plain version bit for bit (decode
+attention within a tolerance its sums' order sets, and bit for bit with
+itself across batch, heads and arena size), and refuses what the kernel
+does not take; a reduced engine serves through the kernels.  Needs no
+jax.  Every test is marked ``gpu`` and skips without a card (decided in
+the ``gen`` fixture); on the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 """
@@ -16,6 +18,7 @@ from repro_torch.core.policy import uniform_policy, uniform_schedule
 from repro_torch.kernels import _build
 from repro_torch.kernels import act_quant as aq
 from repro_torch.kernels import bitserial_matmul as bsm
+from repro_torch.kernels import decode_attention as dattn
 from repro_torch.kernels import grouped_matmul as gmm
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import Runtime
@@ -43,6 +46,13 @@ def _counted(name, fn):
     torch.cuda.synchronize()
     assert _build.LAUNCHES[name] == before + 1
     return out
+
+
+def _gemm_launches():
+    """Launches of every kernel but decode attention, which every backend
+    runs on the card (the plain backends replace the GEMMs only)."""
+    return {k: n for k, n in _build.LAUNCHES.items()
+            if k != "decode_attention"}
 
 
 def _act_rows(gen, m, k, qmaxes, signed):
@@ -364,7 +374,8 @@ def test_reduced_jamba_serves_through_the_kernels(gen):
                 assert all(_build.LAUNCHES[k] > 0 for k in used), \
                     _build.LAUNCHES
             else:
-                assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
+                assert not any(_gemm_launches().values()), _build.LAUNCHES
+            assert _build.LAUNCHES["decode_attention"] > 0
     assert outs[0] == outs[1] == outs[2] == outs[3]
 
 
@@ -464,8 +475,9 @@ def test_reduced_engine_serves_through_the_kernels(gen):
             used = ("act_quant", "act_quant_rows", "bitserial_matmul",
                     "grouped_dequant_matmul")
             assert all(_build.LAUNCHES[k] > 0 for k in used), _build.LAUNCHES
-        else:                               # the plain reference launches none
-            assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
+        else:              # the plain reference launches no GEMM kernel
+            assert not any(_gemm_launches().values()), _build.LAUNCHES
+        assert _build.LAUNCHES["decode_attention"] > 0
     assert outs[0] == outs[1]
 
 
@@ -590,14 +602,16 @@ def test_greedy_speculative_equals_plain_at_4_layers(gen):
 
 def test_sampled_streams_cuda_equal_decomposed(gen):
     """Sampled requests, speculative and plain mixed: the kernels' run and
-    the plain backend's (which launches nothing) give the same streams."""
+    the plain backend's (which launches no GEMM kernel) give the same
+    streams."""
     model, params = _full_width(gen)
     reqs = _spec_requests(151936, spec=True, sampled=True)
     outs = []
     for backend in ("cuda", "decomposed"):
         _build.reset_launches()
         outs.append(_tiered(model, params, backend).run(reqs))
-        assert any(_build.LAUNCHES.values()) == (backend == "cuda")
+        assert any(_gemm_launches().values()) == (backend == "cuda")
+        assert _build.LAUNCHES["decode_attention"] > 0
     assert outs[0] == outs[1]
 
 
@@ -709,7 +723,8 @@ def test_preempt_spill_resume_equals_uninterrupted(gen, packed, tmp_path):
 def test_decode_dispatch_count_equals_one_step_launches(gen):
     """decode_dispatch_count at a three-tier layout equals the launches of
     one decode step there: kernels 2 and 4, once per projection and the
-    head (4 and 7 per layer, 46 at 4 layers)."""
+    head (4 and 7 per layer), and decode attention once per layer: 50 at
+    4 layers."""
     model, params = _full_width(gen)
     eng = _kv_engine(model, params, count_dispatches=True)
     for r in _spec_requests(151936, spec=False, sampled=False):
@@ -718,7 +733,7 @@ def test_decode_dispatch_count_equals_one_step_launches(gen):
     groups = eng._group_layout()[0]
     assert len(groups) == 3
     n = eng.decode_dispatch_count(groups=groups)
-    assert n == (4 * 4 + 1) + (7 * 4 + 1)
+    assert n == (4 * 4 + 1) + (7 * 4 + 1) + 4
     assert eng.stats.decode_dispatches[groups] == n
     _build.reset_launches()
     eng._decode_chunk(eng._runtime(), 1)
@@ -726,6 +741,7 @@ def test_decode_dispatch_count_equals_one_step_launches(gen):
     assert sum(_build.LAUNCHES.values()) == n
     assert _build.LAUNCHES["act_quant_rows"] == 4 * 4 + 1
     assert _build.LAUNCHES["grouped_dequant_matmul"] == 7 * 4 + 1
+    assert _build.LAUNCHES["decode_attention"] == 4
 
 
 @pytest.mark.parametrize("signed", [True, False])
@@ -896,3 +912,152 @@ def test_kernel_3_on_fixed_width_planes(gen, bits, m, k, n):
     assert torch.equal(got, exact.to(torch.int32))
     assert torch.equal(_counted("bitserial_matmul", lambda: ops.
                                 bitserial_matmul_planes(x, qw)), got)
+
+
+# ------------------------------------------------------- decode attention
+def _arena(gen, b, smax, kvh, dh, kv_bits, lengths):
+    """A cache of random bf16 K/V written through ``update`` (each mode's
+    own encoding); a mixed arena's slots take 16, 8, 4 in turn."""
+    from repro_torch.models.layers import KVCache
+    c = KVCache.create(b, smax, kvh, dh, kv_bits=kv_bits, device="cuda")
+    if c.mixed:
+        c.kv_bits.copy_(torch.tensor([(16, 8, 4)[i % 3] for i in range(b)],
+                                     dtype=torch.int32))
+    k, v = (torch.randn((b, smax, kvh, dh), device="cuda", generator=gen)
+            .to(torch.bfloat16) for _ in range(2))
+    c.update(k, v, 0, new_length=torch.as_tensor(lengths, dtype=torch.int32,
+                                                 device="cuda"))
+    return c
+
+
+def _lengths(gen, b, smax):
+    """0, 1 and Smax first, the rest drawn from [1, Smax]."""
+    n = torch.randint(1, smax + 1, (b,), device="cuda", generator=gen)
+    n[:3] = torch.tensor([0, 1, smax])[:b]
+    return n
+
+
+def _hold_attention(q, cache):
+    """The kernel (one counted launch) against the plain version
+    (``read`` + ``_decode_core``).  Tolerance, from the order of the sums
+    alone: each bf16 probability may round the other way at its rounding
+    point (2^-8 of it), the f32 sums reorder (Smax 2^-23 of the magnitude
+    summed), and the output takes its own bf16 rounding (2^-7 of it):
+    |kernel - plain| <= 2^-7 |plain| + (2^-8 + Smax 2^-23) sum_t p_t |v_t|,
+    p the f32 probabilities."""
+    from repro_torch.models import layers
+    got = _counted("decode_attention",
+                   lambda: dattn.decode_attention(q, cache))
+    k, v = cache.read(torch.bfloat16)
+    want = layers._decode_core(q, k, v, length=cache.length)
+    b, _, h, dh = q.shape
+    kvh, smax = k.shape[2], k.shape[1]
+    s = torch.einsum("bkgd,bskd->bkgs", q.float().reshape(b, kvh, -1, dh),
+                     k.float()) / dh ** 0.5
+    valid = torch.arange(smax, device="cuda")[None] < cache.length[:, None]
+    p = torch.softmax(s.masked_fill(~valid[:, None, None], layers.NEG), -1)
+    mag = torch.einsum("bkgs,bskd->bkgd", p, v.float().abs())
+    tol = want.float().abs() * 2 ** -7 + \
+        mag.reshape(b, 1, h, dh) * (2 ** -8 + smax * 2 ** -23)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= tol).all()), (diff - tol).max().item()
+    return got
+
+
+KV_MODES = [None, 8, 4, (16, 8, 4)]
+
+
+@pytest.mark.parametrize("kv_bits", KV_MODES)
+@pytest.mark.parametrize("shape", ["reason", "rag"])
+def test_decode_attention_kernel_at_the_served_shapes(gen, shape, kv_bits):
+    """qwen3-8b's heads (32 of 128 over 8 KV heads) on reason-decode's
+    arena (64 slots of 2048) and rag-prefill's (32 of 3328), every storage
+    mode, lengths 0, 1, Smax and drawn: within the tolerance; a slot served
+    alone (a slot view: of the mixed arena too) equals its row of the
+    batch bit for bit."""
+    b, smax = {"reason": (64, 2048), "rag": (32, 3328)}[shape]
+    cache = _arena(gen, b, smax, 8, 128, kv_bits, _lengths(gen, b, smax))
+    q = torch.randn((b, 1, 32, 128), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    got = _hold_attention(q, cache)
+    for i in (0, 1, 2, 5, b - 1):
+        assert torch.equal(dattn.decode_attention(q[i:i + 1], cache.slot(i)),
+                           got[i:i + 1]), i
+
+
+@pytest.mark.parametrize("g", range(1, 10))
+@pytest.mark.parametrize("dh", [16, 64, 128, 160])
+def test_decode_attention_kernel_geometries(gen, dh, g):
+    """Every head size and query heads per KV head of the configurations
+    (reduced or not), every storage mode: within the tolerance, and each
+    KV head's strided slice of q and of the cache (a tensor-parallel
+    rank's heads) equals those heads of the whole call bit for bit."""
+    from repro_torch.models.layers import KVCache
+    b, smax, kvh = 5, 300, 2
+    q = torch.randn((b, 1, kvh * g, dh), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    for kv_bits in KV_MODES:
+        cache = _arena(gen, b, smax, kvh, dh, kv_bits, _lengths(gen, b, smax))
+        got = _hold_attention(q, cache)
+        for r in range(kvh):
+            sub = KVCache(*[None if t is None else t.narrow(2, r, 1)
+                            if t.ndim == 4 else t for t in (
+                                cache.k, cache.v, cache.k_scale,
+                                cache.v_scale, cache.length, cache.kv_bits)],
+                          modes=cache.modes)
+            assert torch.equal(dattn.decode_attention(q.narrow(2, r * g, g),
+                                                      sub),
+                               got.narrow(2, r * g, g)), (kv_bits, r)
+
+
+@pytest.mark.parametrize("h", [16, 32])
+def test_decode_attention_kernel_chunks_and_arena_size(gen, h):
+    """One KV head under 16 and 32 query heads (2 and 4 blocks of 8 heads)
+    over an arena of 4096: scores past one chunk of shared memory (2816
+    positions at 8 heads a block) are recomputed, within the tolerance,
+    and a slot's bits do not depend on Smax (the same slots in an arena
+    cut to 1280 positions, one chunk)."""
+    from repro_torch.models.layers import KVCache
+    b, smax = 4, 4096
+    n = torch.tensor([4000, 1280, 700, 0], dtype=torch.int32, device="cuda")
+    cache = _arena(gen, b, smax, 1, 128, None, n)
+    q = torch.randn((b, 1, h, 128), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    got = _hold_attention(q, cache)
+    cut = KVCache(cache.k[1:3, :1280], cache.v[1:3, :1280], None, None,
+                  cache.length[1:3])
+    assert torch.equal(dattn.decode_attention(q[1:3], cut), got[1:3])
+
+
+def test_attn_core_spans_count_one_launch_a_decode_layer(gen):
+    """A reduced engine on the card, traced: every ``attn_core`` span under
+    a decode step carries one launch (the kernel), under a prefill none,
+    and the streams equal an untraced run's."""
+    from repro_torch.telemetry import trace
+    cfg = reduced_config("qwen3-8b")
+    model = LM(cfg)
+    params = model.init(gen, device="cuda")
+    sched = uniform_schedule({"8/8": (8, 8), "4/4": (4, 4), "2/2": (2, 2)},
+                             backend="cuda")
+    rt = Runtime(policy=sched.policy_for(), schedule=sched)
+    reqs = _engine_requests({"8/8": 0, "4/4": 0, "2/2": 0})
+    want = ServeEngine(model, params, rt, max_batch=4, max_len=32).run(reqs)
+    rec = trace.Tracer()
+    trace.CURRENT = rec
+    try:
+        got = ServeEngine(model, params, rt, max_batch=4, max_len=32).run(reqs)
+    finally:
+        trace.CURRENT = None
+    assert got == want
+    by_id = {sp.id: sp for sp in rec.spans}
+
+    def unit(sp):
+        while sp.parent and sp.name not in ("decode_step", "prefill"):
+            sp = by_id[sp.parent]
+        return sp.name
+    cores = [(unit(sp), sp.args["launches"]) for sp in rec.spans
+             if sp.name == "attn_core"]
+    steps = sum(sp.name == "decode_step" for sp in rec.spans)
+    assert cores.count(("decode_step", 1)) == cfg.num_layers * steps > 0
+    assert cores.count(("prefill", 0)) == cfg.num_layers * len(reqs)
+    assert len(cores) == cfg.num_layers * (steps + len(reqs))

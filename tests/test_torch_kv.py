@@ -296,3 +296,89 @@ def test_kv_cache_create_validation():
                                   device="cpu").head_dim == 16
     with pytest.raises(ValueError, match="needs the mixed"):
         c4.requantize(8)
+
+
+# ------------------------------------------- the decode-attention kernel
+def test_decode_attention_on_the_cpu_takes_the_plain_path():
+    """A CPU tensor takes the plain version (``read`` + ``_decode_core``)
+    in every storage mode and launches nothing."""
+    from repro_torch.kernels import _build
+    gen = torch.Generator().manual_seed(8)
+    q = torch.randn((B, 1, 4, DH), generator=gen).to(torch.bfloat16)
+    before = dict(_build.LAUNCHES)
+    for mode in (None, 8, 4, (16, 8, 4)):
+        tc = tlayers.KVCache.create(B, S, KVH, DH, kv_bits=mode, device="cpu")
+        if tc.mixed:
+            tc.kv_bits.copy_(torch.tensor([16, 8, 4]))
+        tc.update(*(torch.randn((B, S, KVH, DH), generator=gen)
+                    .to(torch.bfloat16) for _ in range(2)), 0,
+                  new_length=torch.tensor([0, 5, S], dtype=torch.int32))
+        k, v = tc.read(q.dtype)
+        assert torch.equal(tlayers.decode_attention(q, tc),
+                           tlayers._decode_core(q, k, v, length=tc.length))
+    assert _build.LAUNCHES == before
+
+
+def _off_layout(case: str):
+    """(q, cache) off the kernel's layout in one way, and the words its
+    message names."""
+    gen = torch.Generator().manual_seed(9)
+    dh = 64
+    q = torch.randn((2, 1, 4, dh), generator=gen).to(torch.bfloat16)
+    mode = {"int8_scale": 8, "kv_bits": (16, 8)}.get(case)
+    cache = tlayers.KVCache.create(2, 8, 2, dh, kv_bits=mode, device="cpu")
+    if case == "q_dtype":
+        return q.float(), cache, "q must be bf16"
+    if case == "q_rows":
+        return q.expand(2, 3, 4, dh), cache, "q must be bf16"
+    if case == "q_strided":
+        return q.transpose(2, 3).contiguous().transpose(2, 3), cache, \
+            "Dh contiguous"
+    if case == "heads":
+        return q[:, :, :3], cache, "multiple of KVH"
+    if case == "head_dim":
+        q48 = q[..., :48].contiguous()
+        c48 = tlayers.KVCache.create(2, 8, 2, 48, device="cpu")
+        return q48, c48, "head size 48"
+    if case == "f32_cache":
+        return q, tlayers.KVCache.create(2, 8, 2, dh, dtype=torch.float32,
+                                         device="cpu"), "no storage code"
+    if case == "lanes":
+        cache.k = cache.k[..., :dh // 2]
+        cache.v = cache.v[..., :dh // 2]
+        return q, cache, "cannot hold a head"
+    if case == "misaligned":
+        flat = torch.zeros(cache.k.numel() + 1, dtype=torch.bfloat16)
+        cache.k = flat[1:].view(cache.k.shape)
+        return q, cache, "16-byte boundaries"
+    if case == "lane_stride":
+        cache.v = cache.v.transpose(2, 3).contiguous().transpose(2, 3)
+        return q, cache, "contiguous lanes"
+    if case == "int8_scale":
+        cache.k_scale = cache.k_scale.float()
+        return q, cache, "k_scale must be bf16"
+    if case == "length":
+        cache.length = cache.length.long()
+        return q, cache, "length must be"
+    if case == "kv_bits":
+        cache.kv_bits = cache.kv_bits[:1]
+        return q, cache, "kv_bits must be"
+    assert case == "cpu"
+    return q, cache, "expected cuda"
+
+
+@pytest.mark.parametrize("case", [
+    "q_dtype", "q_rows", "q_strided", "heads", "head_dim", "f32_cache",
+    "lanes", "misaligned", "lane_stride", "int8_scale", "length", "kv_bits",
+    "cpu"])
+def test_decode_attention_kernel_refuses_what_it_does_not_take(case):
+    """The kernel's wrapper raises, naming the fault, for every operand off
+    its layout, and for a tensor that is not on a card (the layer takes
+    the plain version there and never calls it)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import decode_attention
+    q, cache, words = _off_layout(case)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match=words):
+        decode_attention(q, cache)
+    assert _build.LAUNCHES == before

@@ -298,7 +298,7 @@ FIELDS = {
     "decode_chunk": {"n_steps", "rows", "active_lanes", "layout", "ticks",
                      "ticks_end"},
     "decode_step": {"rows", "groups"}, "attn": {"layer"},
-    "ssm": {"layer"}, "mlp": {"layer"},
+    "ssm": {"layer"}, "mlp": {"layer"}, "attn_core": {"launches"},
     "linear": {"name", "rows", "launches"}}
 
 
@@ -380,9 +380,10 @@ def test_spans_nest_carry_fields_and_add_up(arch, monkeypatch):
         elif sp.name == mixer:
             assert core[mixer] <= set(below) and "linear" in below
             assert 0 <= sp.args["layer"] < layers
-        elif sp.name == "linear":
+        elif sp.name in ("linear", "attn_core"):
             assert sp.args["launches"] == 0          # the CPU launches none
-            assert sp.args["name"].endswith("_proj") \
+            assert sp.name == "attn_core" \
+                or sp.args["name"].endswith("_proj") \
                 or sp.args["name"] == "lm_head"
     assert uids == set(want)
     assert sum(sp.end - sp.start for sp in spans
