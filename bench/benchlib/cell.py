@@ -26,6 +26,9 @@ from benchlib.traffic import Traffic
 
 BENCH = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+# The end-to-end metric read from a profiler over the whole window; only a
+# cell that lists it runs one.
+DEVICE_METRIC = "device_ms_per_token"
 
 
 @dataclasses.dataclass
@@ -69,6 +72,7 @@ class Context:
     recs: List[Rec]
     window: Window
     traced: Optional[Dict[str, Any]]
+    seconds: float = 0.0
 
     def delta(self, key: str) -> float:
         return self.window.stats1[key] - self.window.stats0[key]
@@ -150,7 +154,12 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
         t = mix.get("trace", {})
         tracer = Tracer(engine, device, t.get("min_chunks", 3),
                         t.get("min_prefills", 0), t.get("max_steps", 8))
-    drv = Driver(engine, traffic, tracer)
+    window_trace = None
+    if not trace and device.type == "cuda" and any(
+            m["name"] == DEVICE_METRIC for m in cell.end_to_end):
+        from benchlib import trace as tr
+        window_trace = tr.DeviceTrace(device)
+    drv = Driver(engine, traffic, tracer, window_trace=window_trace)
     if mix["loop"] == "closed":
         win = drv.run_closed(seconds)
     else:
@@ -175,9 +184,21 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
         e2e, attempted, failed = stats.open_loop(recs, win, seconds)
         load.update({k: v for k, v in e2e.items()
                      if k not in {m["name"] for m in cell.end_to_end}})
+    if window_trace is not None:
+        # Every device operation of the window over every token streamed
+        # in it: what a token costs the card.
+        window_trace.stop()
+        t_read = time.perf_counter()
+        busy_s = window_trace.busy_s()
+        e2e[DEVICE_METRIC] = 1e3 * busy_s / stats.tokens_in(
+            recs, win.t_open, win.t_end)
+        print(f"window trace: device busy {busy_s:.3f} s of "
+              f"{win.t_end - win.t_open:.3f}, read in "
+              f"{time.perf_counter() - t_read:.1f} s", file=sys.stderr)
+        window_trace = drv.window_trace = None
     e2e["peak_mem_gb"] = mem / 1e9
     e2e["setup_s"] = setup_s
-    ctx = Context(cfg, mix, recs, win, win.traced)
+    ctx = Context(cfg, mix, recs, win, win.traced, seconds)
     if not trace:
         for m in cell.end_to_end:
             if m["name"] in e2e:

@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from benchlib import parts
 from benchlib import reference as R
 from benchlib.serve import Rec
 from benchlib.traffic import sample_indices
@@ -82,13 +83,14 @@ def gap_readings(gaps: Sequence[torch.Tensor], sample: Sequence[Rec]
 def readings(cfg: Dict[str, Any], seed: int, recs: Sequence[Rec],
              sample: Sequence[Rec], device: torch.device,
              control: bool = False) -> Dict[str, float]:
-    """Every number the check compares; with ``control`` also the
+    """Every number the check compares, the configuration's reference
+    (``parts.of``) run over the sample; with ``control`` also the
     control's under ``control_<name>``: the one-step-lower reference put in
     the program's place, its tokens the ones it puts first at each
     position of the same sequences, read in the full reference."""
     from benchlib.weights import padded_vocab
     seqs, plens, bits, first, served = sequences(sample, cfg["tiers"])
-    ref = R.Reference(cfg, seed, device)
+    ref = parts.of(cfg).Reference(cfg, seed, device)
     rows = padded_vocab(cfg)
     with torch.no_grad():
         full = ref.logits(seqs, plens, bits, first)

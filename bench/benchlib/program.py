@@ -183,8 +183,8 @@ def block_table(dt: Optional[Any], spans: List[trace.Span]
                 ) -> Dict[str, Any]:
     """Per block kind: host ms per decode step and per prefill (whole spans
     and self time) and, given the card's trace ``dt``, its idle seconds in
-    gaps that began in it; ``linear`` also its kernel launches per decode
-    step."""
+    gaps that began in it; a block that counts its kernel launches
+    (``linear``, ``attn_core``) also its launches per decode step."""
     kids = children(spans)
     by_id = {s.info["id"]: s for s in spans}
 
@@ -208,9 +208,9 @@ def block_table(dt: Optional[Any], spans: List[trace.Span]
             (s.end - s.start) / 1e3 / n[u]
         row[f"{u}_self_ms"] = row.get(f"{u}_self_ms", 0.0) + \
             self_us(s, kids[s.info["id"]]) / 1e3 / n[u]
-        if s.label == "linear" and u == "decode_step":
+        if "launches" in s.info and u == "decode_step":
             row["launches_per_step"] = row.get("launches_per_step", 0.0) \
-                + s.info.get("launches", 0) / n[u]
+                + s.info["launches"] / n[u]
     out = {"decode_steps": n["decode_step"], "prefills": n["prefill"],
            "blocks": rows}
     if dt is not None:

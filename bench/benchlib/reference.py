@@ -24,6 +24,21 @@ What it states, and the engine is held to:
   scan) and kept in f32 in decode.
 * Attention over all earlier positions of the same sequence (causal);
   the SSM over the whole sequence in its quadratic (dual) form.
+* The layers block by block through the configuration's pattern
+  (``benchlib.parts``): ``mixer_norm`` and the mixer, then, where the
+  ff is not null, ``ff_norm`` and the MLP or the MoE, each added to the
+  bf16 residual.
+* The MoE as the program computes it: the router in f32,
+  ``softmax(x @ W_r)``; top-k a stable descending sort, so a tie puts the
+  lower expert first; the k weights renormalised over their sum, clamped
+  at 1e-9.  Each chosen expert's SwiGLU runs through the quantized
+  projection at the row's tier (gate and up read one activation
+  quantization: the codes are per row, so computing them twice gives the
+  same).  The k outputs (bf16) are weighted in f32, summed over k and cast
+  to bf16; the shared expert's MLP is added to that in bf16.  Dropless:
+  every token reaches its k experts, as the benchmark builds the engine
+  (``Runtime(moe_dropless=True)``, a flag only the program's MoE reads);
+  no capacity, and no load-balancing loss (serving drops it).
 
 The departures from the published models are the serving system's own:
 the quantized projections, bf16 residuals (Mamba2 publishes an f32
@@ -39,6 +54,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from benchlib import parts
 from benchlib import weights as W
 
 BF16 = torch.bfloat16
@@ -178,11 +194,24 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor,
     return (out * torch.sigmoid(out)).to(BF16)
 
 
+def route(w: torch.Tensor, x: torch.Tensor, k: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE router on x [M, d] bf16 with w [d, E] f32: (the k weights
+    renormalised, f32 [M, k]; the k experts [M, k])."""
+    s = x.to(F32) @ w
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w = vals[:, :k]
+    top_w = top_w / torch.clamp_min(top_w.sum(dim=-1, keepdim=True), 1e-9)
+    return top_w, idx[:, :k]
+
+
 # ------------------------------------------------------------------ model
 class Reference:
-    """The forward of one configuration over a set of sequences, layer by
-    layer: each layer's weights are made again from the seed, used at every
-    width the sequences ask for, and dropped."""
+    """The forward of one configuration over a set of sequences, block by
+    block: each block's weights are made again from the seed, used at
+    every width the sequences ask for, and dropped."""
 
     def __init__(self, cfg: Dict[str, Any], seed: int,
                  device: torch.device) -> None:
@@ -208,12 +237,13 @@ class Reference:
         xs = [emb[s.to(dev)] for s in seqs]
         del emb
         wbits = [t[0] for t in tiers]
-        for i in range(cfg["num_layers"]):
-            blk = W.make_layer(cfg, self.seed, i, dev)["pos0"]
-            if cfg["family"] == "ssm":
-                xs = self._mamba_layer(blk, xs, prompt_lens, tiers, wbits)
-            else:
-                xs = self._attn_layer(blk, xs, prompt_lens, tiers, wbits)
+        for i, (mixer, ff) in enumerate(parts.layers(cfg)):
+            blk = W.make_block(cfg, self.seed, i, mixer, ff, dev)
+            mix = self._attn if mixer == "attn" else self._mamba
+            xs = mix(blk, xs, prompt_lens, tiers, wbits)
+            if ff is not None:
+                ffn = self._mlp if ff == "mlp" else self._moe
+                xs = ffn(blk, xs, tiers, wbits)
             del blk
         g = W.make_final_norm(cfg, self.seed, dev)
         if cfg.get("tie_embeddings"):
@@ -237,14 +267,12 @@ class Reference:
         del emb
         return out
 
-    def _attn_layer(self, blk, xs, prompt_lens, tiers, wbits):
+    def _attn(self, blk, xs, prompt_lens, tiers, wbits):
         cfg = self.cfg
         h, kvh, dh = cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"]
-        att, mlp = blk["attn"], blk["mlp"]
+        att = blk["attn"]
         st = {name: self._store(att[name]["w"], wbits)
               for name in ("q_proj", "k_proj", "v_proj", "o_proj")}
-        st.update({name: self._store(mlp[name]["w"], wbits)
-                   for name in ("gate_proj", "up_proj", "down_proj")})
         out = []
         for x, p_len, (wb, ab) in zip(xs, prompt_lens, tiers):
             length = x.shape[0]
@@ -260,22 +288,59 @@ class Reference:
             q = rope(q, cfg["rope_theta"])
             k = rope(k, cfg["rope_theta"])
             o = attention(q, k, v, p_len).reshape(length, h * dh)
-            x = x + qlinear(o, st["o_proj"][wb], ab).to(BF16)
-            hn = rmsnorm(x, blk["ff_norm"]["g"], self.eps)
-            gate = qlinear(hn, st["gate_proj"][wb], ab).to(BF16)
-            up = qlinear(hn, st["up_proj"][wb], ab).to(BF16)
-            gf = gate.to(F32)
-            hid = (gf * torch.sigmoid(gf)).to(BF16) * up
-            x = x + qlinear(hid, st["down_proj"][wb], ab).to(BF16)
-            out.append(x)
+            out.append(x + qlinear(o, st["o_proj"][wb], ab).to(BF16))
         return out
 
-    def _mamba_layer(self, blk, xs, prompt_lens, tiers, wbits):
-        cfg = self.cfg
-        d = cfg["d_model"]
-        di = cfg["ssm_expand"] * d
-        ns, p = cfg["ssm_state"], cfg["ssm_headdim"]
-        h = di // p
+    def _swiglu(self, x, st, wb, ab):
+        """A SwiGLU MLP of x [M, d] from its stores at ``(wb, ab)``."""
+        gate = qlinear(x, st["gate_proj"][wb], ab).to(BF16)
+        up = qlinear(x, st["up_proj"][wb], ab).to(BF16)
+        gf = gate.to(F32)
+        hid = (gf * torch.sigmoid(gf)).to(BF16) * up
+        return qlinear(hid, st["down_proj"][wb], ab).to(BF16)
+
+    def _mlp_stores(self, mlp, wbits):
+        return {name: self._store(mlp[name]["w"], wbits)
+                for name in ("gate_proj", "up_proj", "down_proj")}
+
+    def _mlp(self, blk, xs, tiers, wbits):
+        st = self._mlp_stores(blk["mlp"], wbits)
+        return [x + self._swiglu(rmsnorm(x, blk["ff_norm"]["g"], self.eps),
+                                 st, wb, ab)
+                for x, (wb, ab) in zip(xs, tiers)]
+
+    def _moe(self, blk, xs, tiers, wbits):
+        """The MoE block (module docstring), expert by expert: each
+        expert's stores are made once, used for every row routed to it,
+        and dropped."""
+        moe, k = blk["moe"], self.cfg["experts_per_token"]
+        hns = [rmsnorm(x, blk["ff_norm"]["g"], self.eps) for x in xs]
+        routes = [route(moe["router"]["w"], hn, k) for hn in hns]
+        picked = [torch.zeros((x.shape[0], k, x.shape[1]), dtype=BF16,
+                              device=x.device) for x in xs]
+        for e in range(moe["gate_proj"]["w"].shape[0]):
+            st = self._mlp_stores({n: {"w": moe[n]["w"][e]} for n in
+                                   ("gate_proj", "up_proj", "down_proj")},
+                                  wbits)
+            for hn, (_, top_i), y, (wb, ab) in zip(hns, routes, picked,
+                                                   tiers):
+                rows, slots = (top_i == e).nonzero(as_tuple=True)
+                if rows.numel():
+                    y[rows, slots] = self._swiglu(hn[rows], st, wb, ab)
+            del st
+        shared = self._mlp_stores(moe["shared"], wbits) \
+            if "shared" in moe else None
+        out = []
+        for x, hn, (top_w, _), y, (wb, ab) in zip(xs, hns, routes, picked,
+                                                  tiers):
+            y = (y.to(F32) * top_w[..., None]).sum(dim=1).to(BF16)
+            if shared is not None:
+                y = y + self._swiglu(hn, shared, wb, ab)
+            out.append(x + y)
+        return out
+
+    def _mamba(self, blk, xs, prompt_lens, tiers, wbits):
+        di, ns, p, h = W.ssm_sizes(self.cfg)
         mb = blk["mamba"]
         st_in = self._store(mb["in_proj"]["w"], wbits)
         st_out = self._store(mb["out_proj"]["w"], wbits)

@@ -13,34 +13,57 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from benchlib import weights
+from benchlib import parts
 from benchlib.traffic import Planned, Traffic
 
-# ArchConfig fields a configuration file may set.
-ARCH_KEYS = ("name", "family", "num_layers", "d_model", "num_heads",
-             "num_kv_heads", "d_ff", "vocab_size", "head_dim", "qk_norm",
-             "rope_theta", "ssm", "ssm_state", "ssm_headdim", "ssm_conv",
-             "ssm_expand", "ssm_chunk", "tie_embeddings", "dtype_str")
+# Keys of a configuration file that are the harness's own; every other key
+# is a field of the program's ArchConfig, passed on.
+HARNESS_KEYS = ("source", "published", "reduced", "assumed", "deployment",
+                "store", "tiers", "init", "rms_norm_eps", "pattern", "model")
 # Request ids of the set-up's shape warm-up, apart from the traffic's.
 WARM_UID = 1 << 40
+
+
+def arch_config(cfg: Dict[str, Any]) -> Any:
+    """The program's ``ArchConfig`` with every field the file sets.  A key
+    that is neither a field nor one of :data:`HARNESS_KEYS` is refused by
+    name, so that no key is dropped and no file is served as another
+    model."""
+    from repro_torch.models.config import ArchConfig
+    fields = {f.name for f in dataclasses.fields(ArchConfig)}
+    unknown = sorted(set(cfg) - fields - set(HARNESS_KEYS))
+    if unknown:
+        raise ValueError(f"configuration {cfg.get('name')!r}: key(s) "
+                         f"{', '.join(map(repr, unknown))} neither an "
+                         "ArchConfig field nor one of the harness's "
+                         f"{HARNESS_KEYS}")
+    return ArchConfig(**{k: v for k, v in cfg.items() if k in fields})
 
 
 def build_engine(cfg: Dict[str, Any], mix: Dict[str, Any], seed: int,
                  device: torch.device) -> Any:
     """The port's ``ServeEngine`` for ``cfg`` with the mix's slot settings,
-    handed the float weights of ``seed`` (it prepares its own store)."""
+    handed the float weights of ``seed`` (it prepares its own store).  The
+    file's pattern must be the program's.  MoE layers are dropless
+    (``moe_dropless``, read by the program's MoE alone): serving drops no
+    token."""
     from repro_torch.core.policy import uniform_schedule
-    from repro_torch.models.config import ArchConfig
     from repro_torch.models.layers import Runtime
     from repro_torch.models.transformer import LM
     from repro_torch.serve.engine import ServeEngine
-    arch = ArchConfig(**{k: cfg[k] for k in ARCH_KEYS if k in cfg})
+    model = LM(arch_config(cfg))
+    if tuple(model.pattern) != parts.pattern(cfg):
+        raise ValueError(f"configuration {cfg.get('name')!r}: key 'pattern' "
+                         f"{parts.pattern(cfg)} differs from the program's "
+                         f"{tuple(model.pattern)}")
     sched = uniform_schedule({t: tuple(b) for t, b in cfg["tiers"].items()},
                              backend="cuda")
-    rt = Runtime(policy=sched.policy_for(), schedule=sched)
+    rt = Runtime(policy=sched.policy_for(), schedule=sched,
+                 moe_dropless=True)
     eng = mix["engine"]
-    return ServeEngine(LM(arch), weights.make_params(cfg, seed, device), rt,
-                       max_batch=eng["max_batch"], max_len=eng["max_len"],
+    return ServeEngine(model, parts.of(cfg).make_params(cfg, seed, device),
+                       rt, max_batch=eng["max_batch"],
+                       max_len=eng["max_len"],
                        decode_chunk=eng.get("decode_chunk", 8),
                        prompt_bucket=eng.get("prompt_bucket", 8),
                        packed=cfg.get("store") == "packed", device=device)
@@ -85,8 +108,13 @@ class Driver:
     """Submits the traffic's requests and steps the engine."""
 
     def __init__(self, engine: Any, traffic: Traffic,
-                 tracer: Optional[Any] = None, uid_base: int = 0) -> None:
+                 tracer: Optional[Any] = None, uid_base: int = 0,
+                 window_trace: Optional[Any] = None) -> None:
         self.engine = engine
+        # A profiler over the whole window (``trace.DeviceTrace``): started
+        # in set-up (its first start takes seconds), the window's opening
+        # and close marked on the device; the caller stops it.
+        self.window_trace = window_trace
         self.uid_base = uid_base
         self.queue_at_close = 0
         self.late_s: List[float] = []
@@ -135,6 +163,9 @@ class Driver:
         for _ in range(warm_steps):
             self._resubmit(self.engine.step())
         stats0 = stats_of(self.engine)
+        if self.window_trace is not None:
+            self.window_trace.start()
+            self.window_trace.mark()
         t_open = time.perf_counter()
         if self.tracer is not None:
             self.tracer.arm(t_open, seconds)
@@ -142,19 +173,20 @@ class Driver:
         while t_end - t_open < seconds:
             self._resubmit(self._step())
             t_end = time.perf_counter()
+        if self.window_trace is not None:
+            self.window_trace.mark()
         return Window(t_open, t_end, t_end, stats0, stats_of(self.engine),
                       self.tracer.result() if self.tracer else None)
 
     # ------------------------------------------------------------ open loop
-    def warm_prompt_shapes(self) -> None:
-        """One prefill of every prompt shape (bucket) the mix sends, tiers
+    def warm_prompt_shapes(self, lengths: Any) -> None:
+        """One prefill of every prompt shape (bucket) of ``lengths``, tiers
         in turn, each a request of one token, so that no prefill shape is
         first met in the window.  (A closed loop needs none: its slot fill
         is the first block, which holds every prompt length of the mix.)"""
         from repro_torch.serve.request import Request
         bucket = int(self.mix["engine"].get("prompt_bucket", 8))
-        shapes = sorted({-(-int(n) // bucket) * bucket
-                         for n in self.traffic.prompt_lengths()})
+        shapes = sorted({-(-int(n) // bucket) * bucket for n in lengths})
         tiers = list(self.mix["tiers"])
         for j, n in enumerate(shapes):
             self.engine.submit(Request(
@@ -164,47 +196,64 @@ class Driver:
             self.engine.step()
 
     def run_open(self, seconds: float, grace_s: float) -> Window:
-        """Every prompt shape warmed, then arrivals from ``warmup_s``
-        before the window opens; after the close the load goes on until
-        every request due in the window has finished, or ``grace_s`` has
-        passed."""
-        self.warm_prompt_shapes()
+        """Every prompt shape of the plan (``Traffic.open_plan``) warmed,
+        then the warm-up stretch's arrivals from ``warmup_s`` before the
+        window opens.  The window opens at the first step boundary past
+        ``warmup_s``, and the later stretches are due from that instant,
+        so that the requests due in the window are the window's stretch,
+        whole.  After the close the load goes on until every request due in
+        the window has finished, or ``grace_s`` has passed."""
+        plan = self.traffic.open_plan(seconds, grace_s)
+        self.warm_prompt_shapes(len(p.prompt) for _, p in plan)
+        if self.window_trace is not None:
+            self.window_trace.start()
         warm = float(self.mix["warmup_s"])
-        dues = self.traffic.arrivals(warm + seconds + grace_s)
         t_load = time.perf_counter()
         t_open = t_load + warm
         t_close = t_open + seconds
         stats0: Optional[Dict[str, float]] = None
         stats1: Optional[Dict[str, float]] = None
         t_end = t_close
+
+        def due(d: float) -> float:
+            return t_load + d if d < warm else t_open - warm + d
         i = 0
         while True:
             now = time.perf_counter()
             if stats0 is None and now >= t_open:
                 stats0 = stats_of(self.engine)
+                if self.window_trace is not None:
+                    self.window_trace.mark()
+                    now = time.perf_counter()
                 t_open = now
                 t_close = t_open + seconds
                 if self.tracer is not None:
                     self.tracer.arm(t_open, seconds)
-            while i < len(dues) and t_load + dues[i] <= now:
-                self.submit(self.traffic.request(i), t_load + dues[i])
+            # The warm-up's dues count from the load's start, the rest from
+            # the window's opening (the nominal one until it opens).
+            while i < len(plan) and due(plan[i][0]) <= now:
+                self.submit(plan[i][1], due(plan[i][0]))
                 i += 1
             if stats1 is None and now >= t_close:
                 stats1 = stats_of(self.engine)
                 t_end = now
                 self.queue_at_close = len(self.engine.scheduler.waiting)
+                if self.window_trace is not None:
+                    self.window_trace.mark()
             if stats1 is not None and (self._window_done(t_open, t_close)
                                        or now >= t_close + grace_s):
                 break
             if self.engine.has_work:
                 self._step()
-            elif i < len(dues):
-                time.sleep(max(0.0, min(0.002, t_load + dues[i] - now)))
+            elif i < len(plan):
+                time.sleep(max(0.0, min(0.002, due(plan[i][0]) - now)))
             else:
                 break
         assert stats0 is not None
         if stats1 is None:
             stats1, t_end = stats_of(self.engine), time.perf_counter()
+            if self.window_trace is not None:
+                self.window_trace.mark()
         return Window(t_open, t_end, time.perf_counter(), stats0, stats1,
                       self.tracer.result() if self.tracer else None)
 
@@ -217,12 +266,15 @@ class Tracer:
     """Profiles a stretch of engine steps inside the window of a traced
     run: it starts after a third of the window and stops once it has seen
     ``min_chunks`` decode chunks and ``min_prefills`` prefills, or after
-    ``max_steps`` steps."""
+    ``max_steps`` steps.  Over the same stretch the program's own span
+    recorder is filled (``benchlib.program``)."""
 
     def __init__(self, engine: Any, device: torch.device,
                  min_chunks: int, min_prefills: int, max_steps: int) -> None:
-        from benchlib import trace
+        from benchlib import program, trace
         self.trace_mod = trace
+        self.program_mod = program
+        self.program: Optional[Any] = None
         self.engine = engine
         self.device = device
         self.min_chunks, self.min_prefills = min_chunks, min_prefills
@@ -252,6 +304,7 @@ class Tracer:
                 self.s0 = stats_of(self.engine)
                 self.dev_trace.start()
                 self.rec.on = True
+                self.program = self.program_mod.start()
             return
         self.steps += 1
         s = stats_of(self.engine)
@@ -264,6 +317,7 @@ class Tracer:
     def _stop(self) -> None:
         self.dev_trace.stop()
         self.rec.on = False
+        self.program_mod.stop(self.program)
         self.done = True
         self.s1 = stats_of(self.engine)
         print(f"traced {self.steps} engine steps, "
@@ -280,6 +334,7 @@ class Tracer:
                   "began", file=sys.stderr)
             return None
         return {"trace": self.dev_trace, "spans": self.rec.spans,
+                "program_spans": self.program_mod.spans_of(self.program),
                 "stats0": self.s0, "stats1": self.s1}
 
 

@@ -27,6 +27,8 @@ _CORE_MANGLED = re.compile(r"plane_gemm_kernelILi(\d+)ELi(\d+)ELb([01])ELb"
                            r"([01])E")
 ANCHOR_CYCLES = 20000
 ANCHOR_ELEMS = 4099
+# The kernel of ``torch.cuda._sleep``, which marks the window's ends.
+_SPIN = "spin_kernel"
 
 
 def kernel_name(name: str, width: int = 110) -> str:
@@ -168,6 +170,31 @@ class DeviceTrace:
         offset = self.t_start - anchor[1]
         self.ops = [Op(kernel_name(n), s + offset, e + offset)
                     for n, s, e in raw if (n, s, e) != anchor]
+
+    def mark(self) -> None:
+        """Marks an instant on the device's clock: a spin kernel launched
+        once the device is idle (the program never launches one)."""
+        torch.cuda.synchronize(self.device)
+        torch.cuda._sleep(ANCHOR_CYCLES)
+
+    def busy_s(self) -> float:
+        """Seconds in which an operation ran on the device between the
+        first and the last :meth:`mark`: the union of every device
+        operation's interval there, read from the profiler's raw events (a
+        whole window's hundreds of thousands, without building the
+        per-event objects of :meth:`collect`)."""
+        from torch.autograd import DeviceType
+        events = [(e.name(), e.start_ns(), e.end_ns())
+                  for e in self.prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+        self.prof = None
+        marks = sorted(s for n, s, _ in events if _SPIN in n)
+        if len(marks) < 2:
+            raise RuntimeError(f"trace: {len(marks)} of the window's two "
+                               "marks among the device operations")
+        a, b = marks[0], marks[-1]
+        return busy_us([(max(s, a), min(e, b)) for n, s, e in events
+                        if _SPIN not in n and e > a and s < b]) / 1e9
 
     @property
     def window_us(self) -> float:

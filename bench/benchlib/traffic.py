@@ -3,15 +3,19 @@ run, deterministic in ``--seed``.
 
 Every seed gets the same multiset of sizes and arrival gaps, in another
 order: lengths, residual budgets and gaps are the quantiles of their
-distributions at the midpoints of ``block`` equal strata, and the seed only
-permutes them within each block of requests (and draws the prompt tokens).
-So two seeds load the engine with the same work and differ in its order.
+distributions at the midpoints of equal strata, and the seed only permutes
+them within each block of requests (and draws the prompt tokens).  So two
+seeds load the engine with the same work and differ in its order.  A
+closed loop's blocks hold ``block`` requests; an open loop's blocks are
+its stretches (:meth:`Traffic.open_plan`), so that the window's requests
+are one whole block.
 
 A mix file holds:
 
 * ``loop``: ``closed`` (``clients`` concurrent clients, each sending its
   next request when the last one finished) or ``open`` (Poisson arrivals at
   ``rate_per_s``, starting ``warmup_s`` before the window opens).
+* ``block`` (closed loop): requests per block of strata.
 * ``prompt`` / ``output``: ``{"median", "sigma", "min", "max"}`` of a
   lognormal, clipped.
 * ``tiers``: tier name -> share.
@@ -26,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from statistics import NormalDist
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -87,12 +91,13 @@ class Traffic:
         self._blocks: Dict[int, List[Planned]] = {}
 
     def prompt_lengths(self) -> np.ndarray:
-        """Every prompt length the run can send: each block permutes the
-        same stratified set."""
+        """Every prompt length a closed loop can send: each block permutes
+        the same stratified set."""
         return lognormal_lengths(self.mix["prompt"], self.block)
 
-    def _make_block(self, b: int, residual: bool) -> List[Planned]:
-        n = self.block
+    def _make_block(self, b: int, residual: bool,
+                    n: Optional[int] = None) -> List[Planned]:
+        n = self.block if n is None else n
         mix = self.mix
         r = rng(self.seed, "order", b)
         outputs = lognormal_lengths(mix["output"], n)
@@ -101,7 +106,7 @@ class Traffic:
             # lengths in one fixed order, so every seed has the same set.
             frac = strata(n)[np.random.default_rng(0).permutation(n)]
             outputs = np.maximum(1, np.ceil(frac * outputs)).astype(np.int64)
-        prompts = r.permutation(self.prompt_lengths())
+        prompts = r.permutation(lognormal_lengths(mix["prompt"], n))
         outputs = r.permutation(outputs)
         tiers = [str(t) for t in r.permutation(tier_sequence(mix["tiers"], n))]
         tok = rng(self.seed, "tokens", b)
@@ -124,23 +129,39 @@ class Traffic:
             self._blocks[b] = self._make_block(b, residual)
         return self._blocks[b][i]
 
-    def arrivals(self, horizon_s: float) -> List[float]:
-        """Open loop: due times (seconds after the load starts) up to
-        ``horizon_s``; gaps are stratified exponential quantiles at
-        ``rate_per_s``, permuted per block."""
+    def open_plan(self, seconds: float, grace_s: float
+                  ) -> List[Tuple[float, Planned]]:
+        """Open loop: every request's due time (seconds after the load
+        starts) with the request, in due order, over three kinds of
+        stretch: the warm-up ``[0, warmup_s)``, the window ``[warmup_s,
+        warmup_s + seconds)``, and after the close window-long stretches
+        until ``grace_s`` is covered.  A stretch of length L holds n =
+        round(``rate_per_s`` x L) requests: their sizes are one block of n
+        strata, and their n + 1 gaps (before the first, between, after the
+        last) the exponential quantiles at n + 1 strata, scaled to sum to
+        L; the seed permutes both.  So the window holds the same sizes and
+        gaps for every seed, in another order, and the stretches after the
+        close repeat them in other orders."""
         rate = float(self.mix["rate_per_s"])
-        n = self.block
-        dues: List[float] = []
-        t, b = 0.0, 0
-        while t < horizon_s:
-            gaps = -np.log1p(-strata(n)) / rate
-            for g in rng(self.seed, "gap", b).permutation(gaps):
-                t += float(g)
-                if t >= horizon_s:
-                    break
-                dues.append(t)
-            b += 1
-        return dues
+        warm = float(self.mix["warmup_s"])
+        stretches = [(warm, int(round(rate * warm)))]
+        t = warm
+        while t < warm + seconds + grace_s:
+            stretches.append((seconds, int(round(rate * seconds))))
+            t += seconds
+        plan: List[Tuple[float, Planned]] = []
+        start = 0.0
+        for b, (length, n) in enumerate(stretches):
+            if n > 0:
+                gaps = -np.log1p(-strata(n + 1))
+                gaps = rng(self.seed, "gap", b).permutation(gaps) \
+                    * (length / gaps.sum())
+                dues = start + np.cumsum(gaps)[:n]
+                for d, r in zip(dues, self._make_block(b, False, n)):
+                    plan.append((float(d), dataclasses.replace(
+                        r, index=len(plan))))
+            start += length
+        return plan
 
 
 def sample_indices(seed: int, groups: Dict[str, List[int]], per_group: int,

@@ -1,8 +1,9 @@
 """The decode steps' share of the card's int8 peak: the model's operations
 for every token a decode step emitted in the window (projections, head,
-attention at the token's context, or the SSM recurrence), over the
-engine's decode seconds."""
-from benchlib import counts, peaks
+the MoE's router and routed and shared experts, attention at the token's
+context, the SSM recurrence; the configuration's ``token_ops``,
+``benchlib.parts``), over the engine's decode seconds."""
+from benchlib import parts, peaks
 
 
 def read(ctx):
@@ -10,5 +11,6 @@ def read(ctx):
     contexts = ctx.decode_contexts()
     if secs <= 0 or not contexts:
         return None
-    ops = sum(counts.token_ops(ctx.cfg, c) for c in contexts)
+    token_ops = parts.of(ctx.cfg).token_ops
+    ops = sum(token_ops(ctx.cfg, c) for c in contexts)
     return 100.0 * ops / secs / peaks.PEAK_OPS_INT8

@@ -2,8 +2,9 @@
 time of every launch in the traced stretch (each prefill's projections
 at its padded rows and its head at one row, and any one-tier decode
 step), worked out from their shapes, over the profiler's device time of
-``plane_gemm_kernel<.., kGrouped=false>``."""
-from benchlib import counts, trace
+``plane_gemm_kernel<.., kGrouped=false>``.  The least times are the
+configuration's ``plane_gemms`` (``benchlib.parts``)."""
+from benchlib import counts, parts, trace
 
 
 def read(ctx):
@@ -14,15 +15,16 @@ def read(ctx):
     if busy <= 0:
         return None
     tiers = ctx.cfg["tiers"]
+    plane_gemms = parts.of(ctx.cfg).plane_gemms
     least = 0.0
     for s in ctx.spans("prefill"):
-        least += counts.plane_gemms(ctx.cfg, s.info["rows"],
-                                    counts.planes_of(tiers[s.info["tier"]][0]),
-                                    False, 1)
+        least += plane_gemms(ctx.cfg, s.info["rows"],
+                             counts.planes_of(tiers[s.info["tier"]][0]),
+                             False, 1)
     for s in ctx.spans("decode_step"):
         groups = s.info["groups"]
         if len(groups) == 1:
-            least += counts.plane_gemms(
+            least += plane_gemms(
                 ctx.cfg, s.info["rows"],
                 counts.planes_of(tiers[groups[0][0]][0]), False,
                 s.info["rows"])

@@ -1,0 +1,8 @@
+"""``k4_roofline`` for the reason-decode cell, read as ``k4_roofline.py``
+reads it.  That cell's wall-clock throughput swings with the host's speed
+and is read per layer (``tokens_per_s.reason``); the end-to-end metric
+this one moves there is ``device_ms_per_token``, hence an entry of its
+own."""
+from benchlib.cell import load_reader
+
+read = load_reader("k4_roofline")

@@ -5,12 +5,10 @@ program's spans give.
     python3 bench/spans.py --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
-With ``--trace 1`` the recorder is filled over the traced stretch, where
-``bench/run.py``'s own wrappers are on: the result line then also holds
-the four readings of the program's spans (``bench/metrics/``:
-``decode_host_ms``, ``decode_host_ms.rag``, ``prefill_host_ms.rag``,
-``idle_in_blocks_share``, each in the cells it applies to), and the line
-before it the per-block table (``benchlib.program.block_table``).  With
+With ``--trace 1`` it is ``bench/run.py --trace 1``, whose tracer fills
+the recorder over the traced stretch (the result line holds the four
+readings of the program's spans, ``READINGS``), with the per-block table
+(``benchlib.program.block_table``) on the line before the result.  With
 ``--trace 0`` (closed loops) it measures what recording costs, with no
 profiler on: after the set-up and one window, as ``bench/run.py``'s,
 the same engine runs windows of ``--seconds`` in turns with the recorder
@@ -32,16 +30,20 @@ import types  # noqa: E402
 import run as bench_run  # noqa: E402
 
 # The per-layer metrics read from the program's spans, with the cells
-# each applies to.
+# each applies to, as BENCHMARK.json lists them.
 READINGS = [
     {"name": "decode_host_ms", "unit": "ms",
-     "workloads": ["qwen3-8b.reason-decode", "mamba2-1.3b.long-decode"]},
+     "workloads": ["mamba2-1.3b.long-decode"]},
+    {"name": "decode_host_ms.reason", "unit": "ms",
+     "workloads": ["qwen3-8b.reason-decode"]},
     {"name": "decode_host_ms.rag", "unit": "ms",
      "workloads": ["qwen3-8b.rag-prefill"]},
     {"name": "prefill_host_ms.rag", "unit": "ms",
      "workloads": ["qwen3-8b.rag-prefill"]},
     {"name": "idle_in_blocks_share", "unit": "%",
-     "workloads": ["qwen3-8b.reason-decode", "mamba2-1.3b.long-decode"]},
+     "workloads": ["mamba2-1.3b.long-decode"]},
+    {"name": "idle_in_blocks_share.reason", "unit": "%",
+     "workloads": ["qwen3-8b.reason-decode"]},
 ]
 
 
@@ -100,33 +102,18 @@ def alternate(spec, seed: int, seconds: float, device) -> dict:
             "block_table": program.block_table(None, spans)}
 
 
-def record_traced_stretch(serve, program, kept: list) -> None:
-    """Fills the program's recorder where the traced stretch starts,
-    empties it where it stops, and hands its spans to the readers as
-    ``traced["program_spans"]`` (kept in ``kept`` too)."""
-    tracer = serve.Tracer
-    after_step, stop, result = tracer.after_step, tracer._stop, tracer.result
-
-    def after_step_(self, driver):
-        was = self.rec.on
-        after_step(self, driver)
-        if self.rec.on and not was:
-            self.program = program.start()
-
-    def stop_(self):
-        stop(self)
-        program.stop(getattr(self, "program", None))
+def record_traced_stretch(serve, kept: list) -> None:
+    """Keeps the traced stretch (``Tracer.result``, the program's spans in
+    ``program_spans``) in ``kept``, for the per-block table."""
+    result = serve.Tracer.result
 
     def result_(self):
         out = result(self)
         if out is not None:
-            out["program_spans"] = program.spans_of(
-                getattr(self, "program", None))
             kept.append(out)
         return out
 
-    tracer.after_step, tracer._stop, tracer.result = \
-        after_step_, stop_, result_
+    serve.Tracer.result = result_
 
 
 def main(argv=None) -> int:
@@ -155,9 +142,7 @@ def main(argv=None) -> int:
               flush=True)
         return 0
     kept: list = []
-    record_traced_stretch(serve, program, kept)
-    spec.per_layer += [m for m in READINGS
-                       if args.workload in m["workloads"]]
+    record_traced_stretch(serve, kept)
     result = cell_mod.run(spec, args.seed, args.seconds, True, device,
                           T_START)
     if kept:

@@ -1,5 +1,6 @@
-"""Tiny cells for the benchmark's CPU tests: the configurations' families
-at a few layers of width 64, the three traffic shapes at a few requests."""
+"""Tiny cells for the benchmark's CPU tests: the program's families
+(dense, SSM, MoE, hybrid) at a few layers of width 64, the traffic shapes
+at a few requests."""
 import pathlib
 import sys
 
@@ -22,6 +23,27 @@ MAMBA = dict(name="tiny-mamba2", family="ssm", ssm=True, num_layers=2,
              ssm_conv=4, ssm_chunk=8, rms_norm_eps=1e-6,
              tie_embeddings=True, init=dict(embed_std=0.02),
              store="planes", tiers=TIERS)
+# A sparse-expert decoder: attention, then 4 experts of which 2 are routed
+# to each token, beside a shared expert.
+MOE = dict(name="tiny-moe", family="moe", moe=True, num_layers=2,
+           d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=64,
+           vocab_size=60000, qk_norm=True, rope_theta=10000.0,
+           num_experts=4, experts_per_token=2, shared_expert=True,
+           pattern=[["attn", "moe"]], rms_norm_eps=1e-6,
+           tie_embeddings=False, store="planes", tiers=TIERS)
+# A hybrid period as jamba's at half its length: Mamba2 mixers with the
+# attention last, an MoE (with a shared expert, as granite-4.0-h's) every
+# second position, an MLP at the others.
+HYBRID = dict(name="tiny-hybrid", family="hybrid", ssm=True, attn_every=4,
+              moe=True, moe_every=2, num_layers=4, d_model=64, num_heads=4,
+              num_kv_heads=2, head_dim=16, d_ff=64, vocab_size=60000,
+              rope_theta=10000.0, num_experts=4, experts_per_token=2,
+              shared_expert=True,
+              ssm_state=16, ssm_headdim=16, ssm_expand=2, ssm_conv=4,
+              ssm_chunk=8, pattern=[["mamba", "mlp"], ["mamba", "moe"],
+                                    ["mamba", "mlp"], ["attn", "moe"]],
+              rms_norm_eps=1e-6, tie_embeddings=False, store="planes",
+              tiers=TIERS)
 CLOSED = dict(loop="closed", clients=6, residual_start=True, block=6,
               prompt=dict(median=12, sigma=0.5, min=4, max=24),
               output=dict(median=20, sigma=0.3, min=10, max=30),

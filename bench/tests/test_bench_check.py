@@ -12,8 +12,11 @@ from repro_torch.serve.engine import ServeEngine
 
 CELLS = [(T.QWEN, T.CLOSED, "qwen3-8b.reason-decode"),
          (T.QWEN, T.OPEN, "qwen3-8b.rag-prefill"),
-         (T.MAMBA, T.CLOSED, "mamba2-1.3b.long-decode")]
-IDS = ["qwen3-closed", "qwen3-open", "mamba2-closed"]
+         (T.MAMBA, T.CLOSED, "mamba2-1.3b.long-decode"),
+         (T.MOE, T.CLOSED, "qwen3-8b.reason-decode"),
+         (T.HYBRID, T.CLOSED, "mamba2-1.3b.long-decode")]
+IDS = ["qwen3-closed", "qwen3-open", "mamba2-closed", "moe-closed",
+       "hybrid-closed"]
 
 
 @pytest.fixture(autouse=True)
@@ -94,4 +97,41 @@ FAULTS = {"state_unchanged": _state_unchanged, "half_batch": _half_batch,
 def test_broken_timed_path_is_not_correct(monkeypatch, cfg, mix, name, fault):
     FAULTS[fault](monkeypatch, cfg)
     res = T.run(cfg, mix, name)
+    assert not res["correct"], res["readings"]
+
+
+def _route_shifted(monkeypatch):
+    """Every token sent to the experts after the ones its router chose."""
+    from repro_torch.models import moe
+    inner = moe.route
+
+    def shifted(params, x, k, **kw):
+        probs, top_w, top_i = inner(params, x, k, **kw)
+        return probs, top_w, (top_i + 1) % probs.shape[-1]
+    monkeypatch.setattr(moe, "route", shifted)
+
+
+def _shared_dropped(monkeypatch):
+    """The MoE's shared expert left out."""
+    inner = layers.mlp_apply
+
+    def mlp_apply(params, x, rt, name, **kw):
+        y = inner(params, x, rt, name, **kw)
+        return torch.zeros_like(y) if name.endswith(".shared") else y
+    monkeypatch.setattr(layers, "mlp_apply", mlp_apply)
+
+
+MOE_FAULTS = {"route_shifted": _route_shifted,
+              "shared_dropped": _shared_dropped}
+
+
+@pytest.mark.parametrize("fault", sorted(MOE_FAULTS))
+@pytest.mark.parametrize("cfg,name", [
+    (T.MOE, "qwen3-8b.reason-decode"), (T.HYBRID, "mamba2-1.3b.long-decode")],
+    ids=["moe", "hybrid"])
+def test_broken_moe_is_not_correct(monkeypatch, cfg, name, fault):
+    """The check follows the MoE: experts other than the router's, or no
+    shared expert, come out not correct."""
+    MOE_FAULTS[fault](monkeypatch)
+    res = T.run(cfg, T.CLOSED, name)
     assert not res["correct"], res["readings"]

@@ -108,3 +108,15 @@ def test_forbidden_modules_compare_whole_top_level_names():
     assert cell.forbidden_modules(["repro.serve.engine", "jax.numpy",
                                    "jaxlib", "flax.linen"]) == \
         ["flax", "jax", "jaxlib", "repro"]
+
+
+def test_program_span_readings_are_in_the_benchmark():
+    """``bench/spans.py``'s readings of the program's spans are per-layer
+    metrics of BENCHMARK.json, in the same cells."""
+    import spans as tool
+    per_layer = {m["name"]: m for m in SPEC["per_layer"]}
+    for m in tool.READINGS:
+        entry = per_layer[m["name"]]
+        assert entry["source"] == "program_span"
+        assert (entry["unit"], entry["workloads"]) == (m["unit"],
+                                                       m["workloads"])
